@@ -1,0 +1,110 @@
+"""K1: Cholesky factor of one SPD tile — hand-written Hopper kernel.
+
+Replaces the Pallas kernel ``dlaf_tpu/ops/pallas/potrf.py`` ``potrf_tile``
+(``_potrf_u_kernel``, ``_potrf_u_kernel_blk``). The CUDA source is
+``dlaf_tpu_torch/csrc/potrf_tile.cu``; its header says what bounds it on
+the card and how the design answers.
+
+:func:`potrf_tile` dispatches on the tensor's device: a CPU tensor takes the
+plain PyTorch version :func:`potrf_tile_ref`; a CUDA tensor launches the
+kernel or raises. There is no fallback from one to the other.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..core import ct, symmetrize_tri, tril_mask
+from . import _build
+
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def potrf_tile_ref(a: torch.Tensor, upper: bool = False) -> torch.Tensor:
+    """Plain version: ``torch.linalg.cholesky_ex`` on the mirrored tile.
+
+    Reads only the ``upper`` (or lower) triangle of ``a`` and returns U
+    (A = U^H U) or L (A = L L^H) with the other triangle zero. Where the
+    tile is not positive definite the factor's triangle is NaN, as XLA's
+    Cholesky leaves it on the CPU, so that ``potrf_info`` sees the failure.
+    bf16 is factored in f32 and rounded back.
+    """
+    work = a.float() if a.dtype == torch.bfloat16 else a
+    l, info = torch.linalg.cholesky_ex(symmetrize_tri(work, lower=not upper))
+    n = a.shape[0]
+    bad = (info > 0) & tril_mask(n, device=a.device)
+    l = l.masked_fill(bad, float("nan")).to(a.dtype)
+    return ct(l).resolve_conj() if upper else l
+
+
+def potrf_tile(a: torch.Tensor, upper: bool = False) -> torch.Tensor:
+    """Cholesky factor of one SPD tile (f32/bf16 on the card), other
+    triangle zeroed; the result is a new tensor.
+
+    ``upper=False``: L (A = L L^T) from a's lower triangle; ``upper=True``:
+    U (A = U^T U) from a's upper triangle. A non-positive pivot gives NaN
+    that propagates to the rest of the factor (no trap, no early exit).
+    An nb whose 32-row slab does not fit in one block's shared memory
+    (nb > 1808 on an H100) makes the launch fail, and the wrapper raises.
+    """
+    if not _build.on_cuda(a):
+        return potrf_tile_ref(a, upper)
+    if a.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"potrf_tile kernel takes f32/bf16, got {a.dtype}")
+    if a.dim() != 2 or a.shape[0] != a.shape[1]:
+        raise ValueError(f"potrf_tile needs a square tile, got {tuple(a.shape)}")
+    nb = a.shape[0]
+    if nb == 0 or nb % 8:
+        raise ValueError(f"potrf_tile needs nb % 8 == 0, got nb={nb}")
+    if a.stride(1) != 1:
+        raise ValueError("potrf_tile needs unit column stride")
+    out = torch.empty((nb, nb), dtype=a.dtype, device=a.device)
+    work = torch.empty((nb, nb), dtype=torch.float32, device=a.device)
+    lib = _build.library("potrf_tile")
+    with torch.cuda.device(a.device):
+        rc = lib.dlaf_potrf_tile(a.data_ptr(), a.stride(0), out.data_ptr(), nb,
+                                 work.data_ptr(), nb, int(upper),
+                                 int(a.dtype == torch.bfloat16), _build.stream_of(a))
+    _build.check(rc, lib, "potrf_tile")
+    potrf_tile.launches += 1
+    return out
+
+
+potrf_tile.launches = 0
+
+
+def factor_deviation(got: torch.Tensor, want: torch.Tensor, c: float,
+                     bf16: bool = False) -> float:
+    """How far a factor lies from a reference factor, in units of the
+    tolerance: the largest over the entries of
+
+        |got - want| / (c eps32 (|want| + max off-diagonal |want|)
+                        [+ half a bf16 ulp of max(|got|, |want|)])
+
+    so that the factor is within tolerance where this is <= 1. The relative
+    term holds each entry to its own size (the diagonal of a Cholesky
+    factor is sqrt(n) times the off-diagonal); the absolute term covers the
+    entries near 0. With ``bf16`` the factor ``got`` was rounded to bf16
+    once from f32 work, and ``want`` is the f32 factor of the same input.
+    NaN anywhere gives NaN. Works through 2048 rows at a time, so that an
+    n = 32768 factor needs no full-size f64 temporary.
+    """
+    n, rows = want.shape[0], 2048
+    off = 0.0
+    for i in range(0, n, rows):
+        w = want[i:i + rows].abs()
+        w.diagonal(offset=i).zero_()
+        off = max(off, float(w.max()))
+    worst = 0.0
+    for i in range(0, n, rows):
+        g, w = got[i:i + rows].double(), want[i:i + rows].double()
+        tol = w.abs().add_(off).mul_(c * torch.finfo(torch.float32).eps)
+        if bf16:
+            _, e = torch.frexp(torch.maximum(g.abs(), w.abs()))
+            tol.add_(torch.ldexp(torch.ones_like(tol), e - 9))
+        dev = float(g.sub_(w).abs_().div_(tol).max())
+        if math.isnan(dev):
+            return dev
+        worst = max(worst, dev)
+    return worst
