@@ -7,7 +7,7 @@ parseable ``CSVData-2`` row, field for field as the JAX miniapps print it.
 
 The device is explicit (``--device``, default ``cuda``): a run asked for
 the card fails where there is none, it never moves to the CPU. Options that
-only other miniapps read (``--m``, ``--band-size``) and ``--input-file`` /
+only other miniapps read (``--m``) and ``--input-file`` /
 ``--output-file`` (which need ``matrix/io.py``) come with later slices.
 """
 from __future__ import annotations
@@ -23,6 +23,9 @@ def parser(name: str) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog=name)
     p.add_argument("--matrix-size", "-n", type=int, default=2048)
     p.add_argument("--block-size", "-b", type=int, default=256)
+    p.add_argument("--band-size", type=int, default=None,
+                   help="eigensolver band (default: get_band_size of the tune "
+                        "parameters' default_block_size)")
     p.add_argument("--grid-rows", type=int, default=1)
     p.add_argument("--grid-cols", type=int, default=1)
     p.add_argument("--nruns", type=int, default=3)

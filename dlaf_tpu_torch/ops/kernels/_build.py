@@ -41,6 +41,12 @@ SIGNATURES = {
         # c, ldc, x, ldx, y, ldy, m, n, k, x_k_major, stream
         "dlaf_ksub": [_P, _LL, _P, _LL, _P, _LL, _I, _I, _I, _I, _P],
     },
+    "band2tridiag": {
+        # strips, vs, taus, n, b, nrec, sweep_lo, is_complex, stream
+        "dlaf_band2tridiag": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+        # n, b, is_complex, out (int[2]: lanes, grid)
+        "dlaf_band2tridiag_plan": [_I, _I, _I, _P],
+    },
 }
 
 _libs: dict = {}

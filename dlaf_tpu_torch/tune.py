@@ -31,11 +31,18 @@ class TuneParameters:
     # distributed POTRF wide-panel width and trailing chunks (not ported yet)
     potrf_dist_panel_width: int = 2048
     potrf_dist_trail_chunks: int = 24
-    # eigensolver knobs (not ported yet; kept so from_dict round-trips)
+    # eigensolver: smallest band of get_band_size, sweeps per compact-WY
+    # group of the stage-4 back-transform, laed4 iteration cap
     eigensolver_min_band: int = 128
     bt_band_to_tridiag_hh_apply_group_size: int = 128
+    # k-fused stage-4 streaming apply (JAX kernel K5, eigh_large; not
+    # ported yet, kept so from_dict round-trips)
     bt_apply_fuse_groups: int = 8
     laed4_max_iter: int = 120
+    # stage-2 route (algos/eigensolver/band2tridiag.py band_to_tridiag_auto):
+    # "auto" (kernel K3 on a CUDA f32/complex64 tensor, the plain strip
+    # chase on other CUDA tensors, the batched dense chase on the CPU),
+    # "kernel" (K3 or raise), "strips", "pipelined", "sequential"
     band_to_tridiag_kernel: str = "auto"
     # trailing-update route of the (upper) POTRF hot loop: "torch"
     # (torch.matmul + subtract) or "kernel" (ops/kernels/trailing.py: the

@@ -1,10 +1,11 @@
-"""The port's Cholesky miniapp on the CPU: --check passes and the
-CSVData-2 row has the JAX miniapp's fields."""
+"""The port's Cholesky and eigensolver miniapps on the CPU: --check passes
+and the CSVData-2 row has the JAX miniapp's fields."""
+import numpy as np
 import pytest
 
 import dlaf_tpu
 from dlaf_tpu.miniapps import miniapp_cholesky as jax_miniapp
-from dlaf_tpu_torch.miniapps import miniapp_cholesky
+from dlaf_tpu_torch.miniapps import miniapp_cholesky, miniapp_eigensolver
 
 
 def _csv(out):
@@ -51,3 +52,30 @@ def test_miniapp_grid_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         miniapp_cholesky.main(["-n", "64", "--grid-rows", "2", "--grid-cols", "2",
                                "--device", "cpu"])
+
+
+@pytest.mark.parametrize("typ", ["s", "d", "c"])
+def test_miniapp_eigensolver_cpu(typ, capsys):
+    miniapp_eigensolver.main(["-n", "64", "--band-size", "16", "--check", "--nruns", "1",
+                              "--nwarmups", "0", "--type", typ, "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "check: PASSED" in out
+    row = _csv(out)
+    assert row[4:] == [typ, "L", "64", "256", "1", "1", "1", "cpu"]
+
+
+def test_miniapp_eigensolver_check_gates():
+    """The miniapp's gates pass a sound decomposition and reject one
+    eigenvector column that is off by 1e-3 (as the JAX miniapp's check)."""
+    import torch
+    a = torch.from_numpy(np.random.default_rng(0).standard_normal((64, 64)))
+    a = (a + a.T) / 2
+    w, v = torch.linalg.eigh(a)
+    assert miniapp_eigensolver.check_eigh(a, w, v, torch.float64)[0]
+    v[:, 3] *= 1 + 1e-3
+    assert not miniapp_eigensolver.check_eigh(a, w, v, torch.float64)[0]
+
+
+def test_miniapp_eigensolver_grid_not_ported():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        miniapp_eigensolver.main(["-n", "64", "--grid-rows", "2", "--device", "cpu"])
