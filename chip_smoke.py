@@ -25,6 +25,20 @@ eigenvalues to ``torch.linalg.eigvalsh`` in f64 (a yardstick the port never
 calls), each bound beside a planted fault; complex64 ``eigh`` at n = 4096;
 and the eigensolver miniapp with ``--check`` in s and d.
 
+The ``eigh_large`` slice: K4 and K5 (the streaming stage-4 apply) against
+their plain versions on random WY blocks (the main path's band and width,
+ragged widths, phantom groups, nact = 0), each beside a planted fault and
+with bit-identical repeats; then ``dlaf_tpu_torch.eigh_large`` at
+n = 32768 f32, band 128 (the ``heev_32768`` configuration of
+``scripts/bench_sections.py``), timed whole and by stage with each stage's
+peak memory, held to the bench's probe gates and a trace gate, each beside
+a planted fault; its stage 4 through K5 against the cooked cuBLAS route and
+against K4/K5's plain versions on the same record, K5's heaviest step and
+one K4 group on that record held to their plain versions and timed; and
+``eigh_large`` against ``dt.eigh`` at n = 9984 (K4 and K5; the peeled K4
+call with the most chases held to its plain version on the buffer it was
+given), 2048 in three re-chased chunks and complex64 4096.
+
 Every phase prints one JSON line. Any failed check raises, so the exit code
 is not 0; nothing catches it. The last lines are the card's
 ``nvidia-smi`` name and power limit, one JSON line with the kernels, and
@@ -56,6 +70,8 @@ from dlaf_tpu_torch.algos.eigensolver.bt import (  # noqa: E402
 from dlaf_tpu_torch.algos.eigensolver.driver import _phase_normalize  # noqa: E402
 from dlaf_tpu_torch.algos.eigensolver.red2band import (  # noqa: E402
     extract_band, reduction_to_band)
+from dlaf_tpu_torch.algos.eigensolver import large  # noqa: E402
+from dlaf_tpu_torch.algos.eigensolver import red2band as r2b  # noqa: E402
 from dlaf_tpu_torch.algos.eigensolver.tridiag_dc import tridiag_eigh  # noqa: E402
 from dlaf_tpu_torch.matrix import generators as gen  # noqa: E402
 from dlaf_tpu_torch.miniapps import miniapp_cholesky, miniapp_eigensolver  # noqa: E402
@@ -68,6 +84,9 @@ from dlaf_tpu_torch.ops.householder import householder_vector  # noqa: E402
 from dlaf_tpu_torch.ops.kernels.band2tridiag import (  # noqa: E402
     band_to_tridiag_strips_kernel, band_to_tridiag_strips_ref, chase_plan)
 from dlaf_tpu_torch.ops.kernels.trailing import ksub_matmul, ksub_matmul_ref  # noqa: E402
+from dlaf_tpu_torch.algos.eigensolver import bt as btm  # noqa: E402
+from dlaf_tpu_torch.ops.kernels.bt_apply import (  # noqa: E402
+    bt_apply_fused, bt_apply_fused_ref, bt_apply_group, bt_apply_group_ref)
 from dlaf_tpu_torch.types import eps  # noqa: E402
 
 DEV = torch.device("cuda", 0)
@@ -152,6 +171,45 @@ K3_REL = 16.0
 K3_REL_CAP = 100.0
 K3_EIG = 4.0
 K3_RES = 4.0
+# K4/K5 cases: (kind, b, nev, blocks in the buffer, (base, ncvalid) for K4
+# or (beta, nact, v0p) for K5, k). The main path's band 128 at its width
+# nev = 32768, ragged nev, base_blk > 0 with ncvalid < ncmax, k = 2 and 8,
+# phantom groups (nact < k), nact = 0, and a narrower band.
+K45_CASES = [("K4", 128, 32768, 10, (0, 8), None), ("K4", 128, 1000, 9, (2, 5), None),
+             ("K5", 128, 32768, 14, (1, 8, 4), 8), ("K5", 128, 777, 8, (1, 1, 4), 2),
+             ("K5", 128, 4096, 12, (2, 5, 3), 8), ("K5", 128, 4096, 6, (2, 0, 3), 8),
+             ("K5", 128, 2048, 8, (0, 2, 4), 2), ("K4", 64, 300, 12, (1, 9), None),
+             ("K5", 64, 300, 12, (0, 4, 5), 4)]
+# K4/K5 against the plain version, max|got - want| / (eps32 max|E|). The
+# card's readings: 0 (bit-equal to cuBLAS's order of sums) to 16.5 over the
+# cases, 0 on the real records' calls; one chase's V2 scaled by 1.1 reads
+# 1.9e6 or more
+K45_BOUND = 64.0
+K45_REPLACES = {"bt_apply_group": "dlaf_tpu/ops/pallas/bt_apply.py:187",
+                "bt_apply_fused": "dlaf_tpu/ops/pallas/bt_apply.py:375"}
+# eigh_large: the contract scale of scripts/bench_sections.py heev_32768
+N_LARGE, B_LARGE, LARGE_SEED = 32768, 128, 13
+# its probe gates (scripts/bench_sections.py:443-457: four random unit
+# probes u, orth = max|V^T V u - u| in units of n eps32, res = max|A V u -
+# V diag(w) u| in units of n eps32 max(1, max|A|)) and the trace gate
+# |sum(w) - tr(A)| in units of n eps32 max|A|. The bench's own gates are
+# 500 and 1000; the bounds here are set from the card's readings: sound
+# runs read orth 1.3e-4, res 0.0099, trace 75.7; a dropped stage-2 tau reads
+# res 45, a stage-1 tau scaled by 1.1 orth 0.10 (and trace only 97: the
+# trace barely sees a non-unitary reflector), so the trace gate is shown
+# one tridiagonal diagonal entry off by 2 instead.
+LARGE_BOUNDS = {"orth": 0.01, "res": 0.5, "trace": 150.0}
+# the whole stage 4 through K4/K5 against the cooked cuBLAS route and
+# against K4/K5's plain versions on the same record, max|diff| / (eps32
+# max|E|): the card reads 7.5 and 0 at n = 32768 (32,896 chases); a dropped
+# reflector moves E by O(1) (the res gate's planted fault reads 45 n eps
+# there)
+STAGE4_BOUND = 64.0
+# eigh_large against dt.eigh: (n, rec_chunks, dtype); n = 9984 runs 6
+# groups through K4 and 72 in 9 K5 steps, n = 2048 in three chunks
+# overshoots the band end by 2b + 2 (the abs0 clamp, phantom groups, the
+# re-chase), complex64 takes the cooked route
+LARGE_CASES = [(9984, 1, torch.float32), (2048, 3, torch.float32), (4096, 1, torch.complex64)]
 N_EIGH, B_EIGH, N_EIGH_C = 8192, 128, 4096
 EIGH_SEED = {torch.float32: 11, torch.complex64: 12}
 K3_MAIN = [(N_EIGH, torch.float32), (N_EIGH_C, torch.complex64)]
@@ -774,6 +832,450 @@ def phase_miniapp_eigensolver() -> None:
     emit("miniapp_eigensolver", **runs)
 
 
+def _wy_slabs(g, nc, b, k=None):
+    """(V, V2) slabs of random exact reflectors (tau = 2 / v^T v, so each
+    WY block is orthogonal and E keeps its scale through many chases),
+    formed as stage 4 forms them (bt._group_vt_all): (nc, 2b, b), or
+    (nc, k, 2b, b) for k groups."""
+    def one():
+        vs = torch.randn((b, nc, b), generator=g, device=DEV, dtype=torch.float32)
+        vs[:, :, 0] = 1.0
+        taus = 2.0 / (vs * vs).sum(-1)
+        return btm._group_vt_all(vs, taus, 0, b, b, nc, None)
+    if k is None:
+        return one()
+    pairs = [one() for _ in range(k)]
+    return torch.stack([p[0] for p in pairs], 1), torch.stack([p[1] for p in pairs], 1)
+
+
+def _k45_run(kind, ep2, v, v2, args, b):
+    """The kernel and its plain version on copies of ep2: (got, want)."""
+    kern, ref = (bt_apply_group, bt_apply_group_ref) if kind == "K4" else \
+        (bt_apply_fused, bt_apply_fused_ref)
+    got = kern(ep2.clone(), v, v2, *args, b)
+    want = ref(ep2.clone(), v, v2, *args, b)
+    return got, want
+
+
+def phase_k45() -> None:
+    """K4 and K5 against their plain versions on the card: the main path's
+    width and band, ragged nev, base_blk > 0 with ncvalid < ncmax, K5 with
+    k in {2, 8}, phantom groups (nact < k) and nact = 0; each check beside a
+    planted fault (one chase's V2 scaled by 1.1) and a bit-identical
+    repeat. Errors are max|got - want| / max|E| in units of eps32."""
+    g = torch.Generator(device=DEV).manual_seed(45)
+    worst = {"K4": 0.0, "K5": 0.0}
+    for kind, b, nev, nblk, args, k in K45_CASES:
+        if kind == "K4":
+            base, ncvalid = args
+            v, v2 = _wy_slabs(g, ncvalid + 2, b)          # ncvalid < ncmax
+            nsteps = ncvalid
+        else:
+            v0p = args[2]
+            nsteps = v0p + args[1] - 1 if args[1] else 0
+            v, v2 = _wy_slabs(g, max(nsteps, 1) + 1, b, k)
+            args = (*args, k)
+        ep2 = gen.random_general(g, (nblk * b, nev), torch.float32)
+        got, want = _k45_run(kind, ep2, v, v2, args, b)
+        scale = float(ep2.abs().max())
+        err = float((got - want).abs().max()) / (EPS32 * scale)
+        moved = float((want - ep2).abs().max()) / scale
+        again = _k45_run(kind, ep2, v, v2, args, b)[0]
+        r = {"kind": kind, "b": b, "nev": nev, "nblk": nblk, "args": list(args),
+             "err_eps": err, "moved": moved, "bit_identical": torch.equal(got, again),
+             "untouched_equal": None, "bound_eps": K45_BOUND}
+        # blocks outside the chases' reach are left as they were
+        hi = (args[0] + args[1]) if kind == "K4" else (args[0] + nsteps)
+        lo_blk = args[0]
+        keep = torch.ones(nblk, dtype=torch.bool, device=DEV)
+        if nsteps:
+            keep[lo_blk:hi + 1] = False
+        r["untouched_equal"] = torch.equal(got.view(nblk, b, nev)[keep],
+                                           ep2.view(nblk, b, nev)[keep])
+        if nsteps:
+            bad2 = v2.clone()
+            if kind == "K4":
+                bad2[nsteps // 2] *= 1.1
+            else:
+                bad2[v0p // 2, 0] *= 1.1       # a chase of the bottom group
+            bad = _k45_run(kind, ep2, v, bad2, args, b)[0]
+            r["planted_fault_err_eps"] = float((bad - want).abs().max()) / (EPS32 * scale)
+        emit("k45", **r)
+        what = f"{kind} b={b} nev={nev} args={args}"
+        require(r["bit_identical"] and r["untouched_equal"], f"{what}: {r}")
+        require(err <= K45_BOUND, f"{what}: err {err} > {K45_BOUND} eps32 max|E|")
+        if nsteps:
+            require(moved > 0.01, f"{what}: the chases changed E ({moved})")
+            require(r["planted_fault_err_eps"] > K45_BOUND,
+                    f"{what}: the check passes a planted fault ({r})")
+        else:
+            require(torch.equal(got, ep2), f"{what}: nact = 0 leaves E as it was")
+        worst[kind] = max(worst[kind], err)
+        del ep2, got, want, again, v, v2
+    for name, kind in (("bt_apply_group", "K4"), ("bt_apply_fused", "K5")):
+        KERNELS[name] = dict(
+            name=name, route="cuda", source="dlaf_tpu_torch/csrc/bt_apply.cu",
+            replaces=K45_REPLACES[name], max_abs_err=worst[kind] * EPS32,
+            max_err_eps_of_max_e=worst[kind], bound=f"max|got-want| <= {K45_BOUND} eps32 max|E|")
+
+
+def _count_reset() -> None:
+    band_to_tridiag_strips_kernel.launches = 0
+    bt_apply_group.launches = bt_apply_fused.launches = 0
+
+
+def _counts() -> dict:
+    return {"band_to_tridiag_strips": band_to_tridiag_strips_kernel.launches,
+            "bt_apply_group": bt_apply_group.launches, "bt_apply_fused": bt_apply_fused.launches}
+
+
+def _large_gates(a, w, v) -> dict:
+    """The probe gates of scripts/bench_sections.py heev_32768 and the
+    trace gate, on the card (O(n^2) each)."""
+    n = a.shape[0]
+    g = torch.Generator(device=DEV).manual_seed(5)
+    u = torch.randn((n, 4), generator=g, device=DEV, dtype=torch.float32)
+    u /= u.norm(dim=0, keepdim=True)
+    vu = v @ u
+    orth = float((v.T @ vu - u).abs().max())
+    res = float((a @ vu - v @ (w[:, None] * u)).abs().max())
+    amax = float(a.abs().max())
+    unit = n * EPS32
+    return {"orth": orth / unit, "res": res / (unit * max(amax, 1.0)),
+            "trace": _trace_reading(a, w), "finite": bool(torch.isfinite(v).all()),
+            "ascending": bool((w[1:] >= w[:-1]).all())}
+
+
+def _trace_reading(a, w) -> float:
+    """|sum(w) - tr(A)| in units of n eps32 max|A| (bench_sections.py:498)."""
+    trace = abs(float(w.double().sum()) - float(a.diagonal().double().sum()))
+    return trace / (a.shape[0] * EPS32 * float(a.abs().max()))
+
+
+@contextlib.contextmanager
+def _patched(mod, name, wrap):
+    real = getattr(mod, name)
+    setattr(mod, name, wrap(real))
+    try:
+        yield
+    finally:
+        setattr(mod, name, real)
+
+
+def _drop_stage2_tau(real):
+    """Planted fault: the recorded stage-2 reflector (n/2, 0) lost (tau 0)."""
+    def chase(strips, n, b, lo, chunk):
+        d, e, vs, taus = real(strips, n, b, lo, chunk)
+        if lo <= n // 2 < lo + chunk:
+            taus[n // 2 - lo, 0] = 0
+        return d, e, vs, taus
+    return chase
+
+
+def _scale_stage1_tau(real):
+    """Planted fault: one stage-1 reflector (panel 2, column 5) not unitary,
+    its tau scaled by 1.1 where the panel QR makes it, so the band, the
+    eigenvalues and the back-transform all see it."""
+    calls = [0]
+
+    def qr(panel):
+        v, taus, r = real(panel)
+        if calls[0] == 2:
+            taus = taus.clone()
+            taus[5] *= 1.1
+        calls[0] += 1
+        return v, taus, r
+    return qr
+
+
+def _shift_diagonal(real):
+    """Planted fault: one diagonal entry of the tridiagonal off by 2 (about
+    1% of ||A|| at n = 32768), as a faulty stage 2 would leave it."""
+    def solve(d, e, laed4):
+        d = d.clone()
+        d[d.shape[0] // 2] += 2.0
+        return real(d, e, laed4)
+    return solve
+
+
+def _capture_stage4(store):
+    """bt_band_to_tridiag that keeps, for the shifted apply, a copy of the
+    buffer it is given and the record (for the stage-4 comparison)."""
+    def wrap(real):
+        def bt(buf, vs, taus, b, **kw):
+            if kw.get("shifted"):
+                store.update(ep2=buf.clone(), vs=vs, taus=taus)
+            return real(buf, vs, taus, b, **kw)
+        return bt
+    return wrap
+
+
+def _keep_heaviest(store, chases, copy_buffer: bool):
+    """Wraps a K4/K5 wrapper so that it keeps the arguments of its call with
+    the most chases (``chases(*args)``) in ``store``, and with
+    ``copy_buffer`` a copy of the buffer that call was given; it launches as
+    before."""
+    def wrap(real):
+        def call(ep2, *args):
+            c = chases(*args)
+            if c > store.get("chases", -1):
+                store.update(chases=c, args=args, ep2=ep2.clone() if copy_buffer else None)
+            return real(ep2, *args)
+        return call
+    return wrap
+
+
+def _k5_chases(v, v2, beta, nact, v0p, k, b) -> int:
+    return sum(v0p + i for i in range(nact))
+
+
+def _k4_chases(v, v2, base_blk, ncvalid, b) -> int:
+    return ncvalid
+
+
+@contextlib.contextmanager
+def _plain_stage4():
+    """Stage 4's shifted apply through K4/K5's plain versions."""
+    with _patched(btm, "bt_apply_group", lambda real: bt_apply_group_ref), \
+            _patched(btm, "bt_apply_fused", lambda real: bt_apply_fused_ref):
+        yield
+
+
+def _bt_bound(slabs, nev, b, blocks):
+    """(bound ms, bound_by): the flops the chases need, 2 nev per nonzero of
+    each chase's V and V2 (V, the staggered WY trapezoid, has b nonzero rows
+    of 2b in each column, V2 = V T^H about 1.5 b^2 nonzeros: 5 b^2 nev flops
+    a chase, where a dense 2b x b pair would count 8), over the f32 peak; or
+    the touched E blocks read and written once plus those nonzeros read once,
+    over HBM bandwidth. ``slabs``: the (V, V2) pairs of the chases run."""
+    nnz = sum(int(torch.count_nonzero(v)) + int(torch.count_nonzero(v2)) for v, v2 in slabs)
+    flops = 2.0 * nev * nnz
+    nbytes = 4.0 * (2 * blocks * b * nev + nnz)
+    ms = {"operations": flops / PEAK_F32 * 1e3, "bytes": nbytes / PEAK_BYTES * 1e3}
+    by = max(ms, key=ms.get)
+    return ms[by], by, flops
+
+
+def _err_eps(got, want, scale) -> float:
+    return float((got - want).abs().max()) / (EPS32 * scale)
+
+
+def _padded_copy(ep2, n, b):
+    """The unshifted E of the shifted buffer, padded for the cooked route."""
+    y = torch.zeros((n + 2 * b - 1, n), device=DEV)
+    y[1:n] = ep2[:n - 1]
+    return y
+
+
+def _stage4_and_kernel_times(store, b) -> dict:
+    """The captured n = 32768 stage 4: the whole apply through K5 against
+    the cooked cuBLAS route and against K4/K5's plain versions (two
+    torch.matmul per chase, cuBLAS) on the same record, each timed and
+    compared entry by entry; K5 held to its plain version on the heaviest
+    step that stage 4 launched (its arguments kept as it ran), K4 on the
+    group of sweeps 0..b-1 (256 chases); both timed beside their plain
+    version, bound and the cooked route of the same groups."""
+    ep2, vs, taus = store["ep2"], store["vs"], store["taus"]
+    n = ep2.shape[0] - 2 * b
+    scale = float(ep2.abs().max())
+    r = {}
+    heavy = {}
+    x = ep2.clone()
+    with _patched(btm, "bt_apply_fused", _keep_heaviest(heavy, _k5_chases, False)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bt_band_to_tridiag(x, vs, taus, b, group_size=b, shifted=True)
+        torch.cuda.synchronize()
+        r["stage4_kernel_s"] = time.perf_counter() - t0
+    y = _padded_copy(ep2, n, b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bt_band_to_tridiag(y, vs, taus, b, group_size=b, prepadded=True)
+    torch.cuda.synchronize()
+    r["stage4_cublas_s"] = time.perf_counter() - t0
+    r["stage4_kernel_vs_cublas_eps"] = _err_eps(x[:n - 1], y[1:n], scale)
+    del y
+    z = ep2.clone()
+    with _plain_stage4():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bt_band_to_tridiag(z, vs, taus, b, group_size=b, shifted=True)
+        torch.cuda.synchronize()
+        r["stage4_plain_s"] = time.perf_counter() - t0
+    r["stage4_kernel_vs_plain_eps"] = _err_eps(x, z, scale)
+    del x, z
+    # K5: the heaviest step stage 4 launched (groups 0..7, 2,020 chases)
+    v, v2, beta, nact, v0p, k, _ = heavy["args"]
+    got = bt_apply_fused(ep2.clone(), *heavy["args"])
+    want = bt_apply_fused_ref(ep2.clone(), *heavy["args"])
+    r["k5_real_step_err_eps"] = _err_eps(got, want, scale)
+    del got, want
+    x = ep2.clone()
+    y = _padded_copy(ep2, n, b)
+    sweeps = slice(beta * b, (beta + nact) * b)   # the step's groups (one record: sweep_lo 0)
+    r["k5"] = {"shape": [n, b, k, v0p + nact - 1], "chases": heavy["chases"],
+               "ms": cuda_ms(lambda: bt_apply_fused(x, *heavy["args"]), 3),
+               "plain_ms": cuda_ms(lambda: bt_apply_fused_ref(x, *heavy["args"]), 1),
+               "cooked_ms": cuda_ms(lambda: bt_band_to_tridiag(
+                   y, vs[sweeps], taus[sweeps], b, group_size=b, sweep_lo=sweeps.start,
+                   prepadded=True), 1)}
+    r["k5"]["bound_ms"], r["k5"]["bound_by"], r["k5"]["flops"] = _bt_bound(
+        [(v[:v0p + i, i], v2[:v0p + i, i]) for i in range(nact)], n, b, v0p + nact)
+    del v, v2, heavy
+    # K4: the group with the most chases (sweeps 0..b-1, 256 chases)
+    nc = vs.shape[1]
+    v, v2 = btm._group_vt_all(vs, taus, 0, b, b, nc, None)
+    got = bt_apply_group(ep2.clone(), v, v2, 0, nc, b)
+    want = bt_apply_group_ref(ep2.clone(), v, v2, 0, nc, b)
+    r["k4_real_group_err_eps"] = _err_eps(got, want, scale)
+    del got, want
+    r["k4"] = {"shape": [n, b, nc], "chases": nc,
+               "ms": cuda_ms(lambda: bt_apply_group(x, v, v2, 0, nc, b), 3),
+               "plain_ms": cuda_ms(lambda: bt_apply_group_ref(x, v, v2, 0, nc, b), 1),
+               "cooked_ms": cuda_ms(lambda: bt_band_to_tridiag(
+                   y, vs[:b], taus[:b], b, group_size=b, prepadded=True), 1)}
+    r["k4"]["bound_ms"], r["k4"]["bound_by"], r["k4"]["flops"] = _bt_bound(
+        [(v, v2)], n, b, nc + 1)
+    return r
+
+
+def phase_eigh_large_main() -> None:
+    """eigh_large at n = 32768 f32, band 128, rec_chunks = 1 (stage 4 through
+    K5): a small warm-up, one run with timers (stage seconds and peak
+    memory), one timed run (which also keeps a copy of stage 4's input: one
+    4 GiB copy, ~3 ms), the probe and trace gates beside planted faults
+    (each a whole call), the whole stage 4 against the cooked cuBLAS route
+    and K4/K5's plain versions on the same record, and K4/K5 held to their
+    plain versions and timed on that record."""
+    n, b = N_LARGE, B_LARGE
+    large.eigh_large(_eigh_input(torch.float32)[:1024, :1024].contiguous(), band=b)
+    a = gen.random_hermitian(torch.Generator(device=DEV).manual_seed(LARGE_SEED), n,
+                             torch.float32)
+    # the run with timers first, with nothing but the input held, so that
+    # its peaks are the call's own
+    torch.cuda.empty_cache()
+    base_gib = torch.cuda.memory_allocated() / 2**30
+    w2, v2, stages = large.eigh_large(a, band=b, timers=True)
+    peaks = {k: x / 2**30 for k, x in large.stage_peak_bytes.items()}
+    store = {}
+    _count_reset()
+    with _patched(large, "bt_band_to_tridiag", _capture_stage4(store)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        w, v = large.eigh_large(a, band=b)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    launches = _counts()
+    KERNELS["bt_apply_fused"]["launches"] = launches["bt_apply_fused"]
+    same = {"w": torch.equal(w, w2), "v": torch.equal(v, v2)}
+    del w2, v2
+    readings = _large_gates(a, w, v)
+    planted = {}
+    with _patched(large, "_chase", _drop_stage2_tau):
+        wb, vb = large.eigh_large(a, band=b)
+    planted["stage2_tau_dropped"] = _large_gates(a, wb, vb)
+    del wb, vb
+    with _patched(r2b, "panel_qr", _scale_stage1_tau):
+        wb, vb = large.eigh_large(a, band=b)
+    planted["stage1_tau_scaled"] = _large_gates(a, wb, vb)
+    del wb, vb, v
+    with _patched(large, "tridiag_eigh", _shift_diagonal):
+        planted["tridiag_diagonal_shifted_trace"] = _trace_reading(a, large.eigvalsh_large(a, band=b))
+    st4 = _stage4_and_kernel_times(store, b)
+    del store
+    emit("eigh_large_main", n=n, band=b, dtype="float32", rec_chunks=1, seconds=secs,
+         stage_seconds=stages, stage_peak_gib=peaks, input_gib=base_gib, launches=launches,
+         bit_equal=same,
+         readings=readings, bounds=LARGE_BOUNDS, planted_fault_readings=planted,
+         stage4=st4, nvidia_smi=smi_line())
+    require(launches["bt_apply_fused"] > 0 and launches["band_to_tridiag_strips"] > 0,
+            f"eigh_large n={n} launched K3 and K5 ({launches})")
+    require(same["w"], "eigh_large's timed and staged runs give the same w")
+    require(readings["finite"] and readings["ascending"], f"eigh_large n={n}: {readings}")
+    for k, bound in LARGE_BOUNDS.items():
+        require(readings[k] <= bound, f"eigh_large n={n}: {k} {readings[k]} > {bound}")
+    require(planted["stage2_tau_dropped"]["res"] > LARGE_BOUNDS["res"],
+            f"the res gate passes a planted fault ({planted})")
+    require(planted["stage1_tau_scaled"]["orth"] > LARGE_BOUNDS["orth"],
+            f"the orth gate passes a planted fault ({planted})")
+    require(planted["tridiag_diagonal_shifted_trace"] > LARGE_BOUNDS["trace"],
+            f"the trace gate passes a planted fault ({planted})")
+    require(st4["stage4_kernel_vs_cublas_eps"] <= STAGE4_BOUND,
+            f"stage 4 through K5 against the cuBLAS route: {st4['stage4_kernel_vs_cublas_eps']}")
+    require(st4["stage4_kernel_vs_plain_eps"] <= STAGE4_BOUND,
+            f"stage 4 through K5 against the plain versions: {st4['stage4_kernel_vs_plain_eps']}")
+    for key in ("k5_real_step_err_eps", "k4_real_group_err_eps"):
+        require(st4[key] <= K45_BOUND, f"on the real n = {n} record, {key}: {st4[key]}")
+    for name, key in (("bt_apply_group", "k4"), ("bt_apply_fused", "k5")):
+        t = st4[key]
+        # the library route: the faster of two cuBLAS routes of the same
+        # chases, the plain version's two torch.matmul per chase and the
+        # cooked grouped apply's three
+        lib = min(("plain", "cooked"), key=lambda r: t[f"{r}_ms"])
+        KERNELS[name].update(ms=t["ms"], plain_ms=t["plain_ms"], library_ms=t[f"{lib}_ms"],
+                             cooked_ms=t["cooked_ms"], bound_ms=t["bound_ms"],
+                             bound_by=t["bound_by"], timed_shape=t["shape"],
+                             library={"plain": "two torch.matmul per chase (cuBLAS)",
+                                      "cooked": "the cooked grouped apply, three "
+                                                "torch.matmul per chase (cuBLAS)"}[lib])
+
+
+def phase_eigh_large_cases() -> None:
+    """eigh_large against dt.eigh on the same matrix: w bit-equal (stages 1-3
+    are the same calls), both held to the eigh gates; eigvalsh_large's w
+    bit-equal to eigh_large's at n = 9984. K4's launches on the slice's
+    path are read from the n = 9984 run."""
+    b = B_LARGE
+    for n, chunks, dtype in LARGE_CASES:
+        a = gen.random_hermitian(torch.Generator(device=DEV).manual_seed(n + chunks), n, dtype)
+        a64 = a.to(_wide(dtype))
+        w64 = torch.linalg.eigvalsh(a64)
+        k4 = {}
+        _count_reset()
+        with _patched(btm, "bt_apply_group", _keep_heaviest(k4, _k4_chases, True)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            w, v = large.eigh_large(a, band=b, rec_chunks=chunks)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        launches = _counts()
+        w1, v1 = dt.eigh(a, band=b)
+        r = {"large": _eigh_readings(a64, w, v, w64), "eigh": _eigh_readings(a64, w1, v1, w64),
+             "w_bit_equal_to_eigh": torch.equal(w, w1),
+             "w_max_diff": float((w - w1).abs().max())}
+        del v, v1
+        if k4:   # the peeled K4 call with the most chases, on the buffer it was given
+            ep2 = k4["ep2"]
+            got = bt_apply_group(ep2.clone(), *k4["args"])
+            want = bt_apply_group_ref(ep2, *k4["args"])
+            r["k4_peeled"] = {"chases": k4["chases"], "base_blk": k4["args"][2],
+                              "err_eps": _err_eps(got, want, float(ep2.abs().max()))}
+            del got, want, ep2, k4
+        if n == LARGE_CASES[0][0]:
+            KERNELS["bt_apply_group"]["launches"] = launches["bt_apply_group"]
+            r["eigvalsh_large_bit_equal"] = torch.equal(large.eigvalsh_large(a, band=b), w)
+        emit("eigh_large_case", n=n, band=b, rec_chunks=chunks,
+             dtype=str(dtype).replace("torch.", ""), seconds=secs, launches=launches, **r)
+        what = f"eigh_large n={n} rec_chunks={chunks} {dtype}"
+        _eigh_gates(r["large"], what)
+        require(r["w_bit_equal_to_eigh"], f"{what}: w equals dt.eigh's ({r['w_max_diff']})")
+        require(("k4_peeled" in r) == (launches["bt_apply_group"] > 0), f"{what}: {launches}")
+        if "k4_peeled" in r:
+            require(r["k4_peeled"]["err_eps"] <= K45_BOUND, f"{what}: K4 {r['k4_peeled']}")
+        require(launches["band_to_tridiag_strips"] == chunks + (chunks > 1),
+                f"{what}: K3 launches {launches}")
+        if dtype == torch.float32:
+            require(launches["bt_apply_fused"] > 0, f"{what}: K5 launched ({launches})")
+        else:
+            require(launches["bt_apply_fused"] + launches["bt_apply_group"] == 0,
+                    f"{what}: complex takes the cooked route ({launches})")
+        if n == LARGE_CASES[0][0]:
+            require(launches["bt_apply_group"] == 6 and launches["bt_apply_fused"] == 9,
+                    f"{what}: 6 groups through K4, 9 K5 steps ({launches})")
+            require(r["eigvalsh_large_bit_equal"], f"{what}: eigvalsh_large")
+        del a, a64
+
+
 def _timed_potrf(a) -> tuple[float, torch.Tensor]:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -917,17 +1419,22 @@ def phase_info() -> None:
     emit("potrf_info", n=n, nb=nb, bad_index=bad, info=got, info_spd=int(info_ok))
 
 
+PHASES = (phase_device, phase_k1, phase_k2, phase_main, phase_miniapp, phase_info,
+          phase_k3, phase_eigh_main, phase_eigh_c64, phase_miniapp_eigensolver, phase_k45,
+          phase_eigh_large_main, phase_eigh_large_cases)
+
+
 def main() -> None:
     seconds = {}
-    for phase in (phase_device, phase_k1, phase_k2, phase_main, phase_miniapp, phase_info,
-                  phase_k3, phase_eigh_main, phase_eigh_c64, phase_miniapp_eigensolver):
+    for phase in PHASES:
         t0 = time.perf_counter()
         phase()
         seconds[phase.__name__] = time.perf_counter() - t0
     emit("timing", seconds=seconds)
     print(smi_line())
-    print(json.dumps({"kernels": [KERNELS["potrf_tile"], KERNELS["ksub_matmul"],
-                                  KERNELS["band_to_tridiag_strips"]]}))
+    print(json.dumps({"kernels": [KERNELS[k] for k in ("potrf_tile", "ksub_matmul",
+                                                       "band_to_tridiag_strips",
+                                                       "bt_apply_group", "bt_apply_fused")]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                             "kind": torch.cuda.get_device_name(0),
                                             "count": torch.cuda.device_count()}}))

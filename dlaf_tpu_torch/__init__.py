@@ -2,15 +2,17 @@
 
 The JAX package :mod:`dlaf_tpu` is the reference; this package mirrors its
 module paths. Ported so far: the local Cholesky factorization (``potrf``,
-``potrf_info``) and the local two-stage Hermitian eigensolver (``eigh``,
-``eigvalsh``) end to end, with hand-written Hopper kernels for their three
-TPU kernels (``ops/kernels``, sources in ``csrc/``), the tuning
-parameters, the matrix generators and the Cholesky and eigensolver
-miniapps. The package never imports JAX.
+``potrf_info``), the local two-stage Hermitian eigensolver (``eigh``,
+``eigvalsh``) and its memory-planned form for contract-scale problems
+(``eigh_large``, ``eigvalsh_large``) end to end, with hand-written Hopper
+kernels for their five TPU kernels (``ops/kernels``, sources in
+``csrc/``), the tuning parameters, the matrix generators and the Cholesky
+and eigensolver miniapps. The package never imports JAX.
 """
 from . import types
 from .algos.eigensolver.band2tridiag import band_to_tridiag_auto
 from .algos.eigensolver.driver import _phase_normalize, eigh, get_band_size
+from .algos.eigensolver.large import eigh_large, eigvalsh_large
 from .algos.eigensolver.red2band import extract_band, reduction_to_band
 from .algos.eigensolver.tridiag_dc import tridiag_eigh
 from .api.local import potrf, potrf_info
@@ -18,7 +20,8 @@ from .ops.core import ct
 from .tune import (TuneParameters, from_dict, get_tune_parameters,
                    reset_tune_parameters, set_tune_parameters)
 
-__all__ = ["types", "potrf", "potrf_info", "eigh", "eigvalsh", "TuneParameters",
+__all__ = ["types", "potrf", "potrf_info", "eigh", "eigvalsh", "eigh_large",
+           "eigvalsh_large", "TuneParameters",
            "from_dict", "get_tune_parameters", "reset_tune_parameters",
            "set_tune_parameters"]
 

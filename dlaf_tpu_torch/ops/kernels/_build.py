@@ -47,6 +47,12 @@ SIGNATURES = {
         # n, b, is_complex, out (int[2]: lanes, grid)
         "dlaf_band2tridiag_plan": [_I, _I, _I, _P],
     },
+    "bt_apply": {
+        # e, ld, nev, v, v2t, b, base, ncvalid, stream
+        "dlaf_bt_apply_group": [_P, _LL, _I, _P, _P, _I, _I, _I, _P],
+        # e, ld, nev, v, v2t, b, k, beta, nact, v0p, stream
+        "dlaf_bt_apply_fused": [_P, _LL, _I, _P, _P, _I, _I, _I, _I, _I, _P],
+    },
 }
 
 _libs: dict = {}

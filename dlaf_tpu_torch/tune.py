@@ -35,8 +35,9 @@ class TuneParameters:
     # group of the stage-4 back-transform, laed4 iteration cap
     eigensolver_min_band: int = 128
     bt_band_to_tridiag_hh_apply_group_size: int = 128
-    # k-fused stage-4 streaming apply (JAX kernel K5, eigh_large; not
-    # ported yet, kept so from_dict round-trips)
+    # groups per K5 launch in eigh_large's streaming stage-4 apply (capped
+    # by the kernel's shared-memory plan, ops/kernels/bt_apply.py
+    # fused_groups; below 2, every group goes through K4)
     bt_apply_fuse_groups: int = 8
     laed4_max_iter: int = 120
     # stage-2 route (algos/eigensolver/band2tridiag.py band_to_tridiag_auto):

@@ -286,10 +286,13 @@ def test_bt_band_to_tridiag_sweep_chunks_and_prepadded(dtype):
 
 
 def test_bt_streaming_apply_not_ported():
+    """The streaming apply (shifted, raw_bp) is ported since slice 3
+    (tests/test_torch_bt_apply.py); what it cannot take, it refuses."""
     e, vs, taus = torch.zeros(10, 4), torch.zeros(8, 2, 8), torch.zeros(8, 2)
-    for kw in ({"raw_bp": 128}, {"shifted": True}):
-        with pytest.raises(NotImplementedError, match="slice 3"):
-            bt.bt_band_to_tridiag(e, vs, taus, 8, **kw)
+    with pytest.raises(ValueError, match="shifted apply"):        # b = 8: no kernel plan
+        bt.bt_band_to_tridiag(e, vs, taus, 8, shifted=True)
+    with pytest.raises(ValueError, match="raw record"):           # 7 sweeps, groups of 4
+        bt.bt_band_to_tridiag(e, torch.zeros(8, 2, 128), taus, 8, group_size=4, raw_bp=128)
 
 
 def test_wy_group_vt_places_the_selection(dtype):
