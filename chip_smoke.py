@@ -39,6 +39,22 @@ one K4 group on that record held to their plain versions and timed; and
 call with the most chases held to its plain version on the buffer it was
 given), 2048 in three re-chased chunks and complex64 4096.
 
+The distributed slice: K6 (the masked trailing update) against its plain
+version at the shapes the distributed Cholesky gives it at n = 32768 (the
+heaviest lower and upper staircase chunks, a panel-step update with
+sentinel columns), on the index pattern of a 2x2 grid with ragged,
+row-strided views, through the split-k cluster path, and on inputs whose
+tiles are all dead, each check beside a planted fault, with bit-identical
+repeats, the heaviest chunk timed against cuBLAS's unmasked ``addmm``;
+then ``dlaf_tpu_torch.cholesky`` on a 1x1 grid at n = 32768 f32, nb = 512
+(``scripts/bench_dist.py``'s configuration), L then U, in turns through
+K1 + K6 and the plain route, held to the residual and route gates (each
+beside a planted fault) with the other triangle bit-equal to the input,
+beside the local ``potrf``; and a 2x2 grid of four gloo ranks on the one
+card (``spawn_grid``) at n = 8192, L and U, K6 launched on every rank, the
+gathered factors against the 1x1 grid's entry by entry, ``cholesky_info``
+on a planted pivot and the distributed miniapp with ``--check``.
+
 Every phase prints one JSON line. Any failed check raises, so the exit code
 is not 0; nothing catches it. The last lines are the card's
 ``nvidia-smi`` name and power limit, one JSON line with the kernels, and
@@ -48,6 +64,7 @@ with code 1 before it prints any result.
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import subprocess
@@ -73,7 +90,9 @@ from dlaf_tpu_torch.algos.eigensolver.red2band import (  # noqa: E402
 from dlaf_tpu_torch.algos.eigensolver import large  # noqa: E402
 from dlaf_tpu_torch.algos.eigensolver import red2band as r2b  # noqa: E402
 from dlaf_tpu_torch.algos.eigensolver.tridiag_dc import tridiag_eigh  # noqa: E402
+from dlaf_tpu_torch.comm.launch import spawn_grid  # noqa: E402
 from dlaf_tpu_torch.matrix import generators as gen  # noqa: E402
+from dlaf_tpu_torch.matrix.dist_matrix import global_indices  # noqa: E402
 from dlaf_tpu_torch.miniapps import miniapp_cholesky, miniapp_eigensolver  # noqa: E402
 from dlaf_tpu_torch.ops import leaf  # noqa: E402
 from dlaf_tpu_torch.ops.kernels import _build  # noqa: E402
@@ -83,7 +102,8 @@ from dlaf_tpu_torch.ops.kernels.potrf import (  # noqa: E402
 from dlaf_tpu_torch.ops.householder import householder_vector  # noqa: E402
 from dlaf_tpu_torch.ops.kernels.band2tridiag import (  # noqa: E402
     band_to_tridiag_strips_kernel, band_to_tridiag_strips_ref, chase_plan)
-from dlaf_tpu_torch.ops.kernels.trailing import ksub_matmul, ksub_matmul_ref  # noqa: E402
+from dlaf_tpu_torch.ops.kernels.trailing import (  # noqa: E402
+    ksub_matmul, ksub_matmul_masked, ksub_matmul_masked_ref, ksub_matmul_ref)
 from dlaf_tpu_torch.algos.eigensolver import bt as btm  # noqa: E402
 from dlaf_tpu_torch.ops.kernels.bt_apply import (  # noqa: E402
     bt_apply_fused, bt_apply_fused_ref, bt_apply_group, bt_apply_group_ref)
@@ -219,6 +239,21 @@ K3_MAIN = [(N_EIGH, torch.float32), (N_EIGH_C, torch.complex64)]
 # card's readings: sound f32 n = 8192 reads 0.014, 0.050 and 0.91, complex64
 # n = 4096 0.025, 0.070 and 1.31; the planted faults read 1.15, 4157 and 54
 EIGH_BOUNDS = {"orth": 0.2, "res": 1.0, "eig": 10.0}
+# K6 and the distributed Cholesky. The distributed POTRF at n = 32768,
+# nb = 512 on a 1x1 grid (panel width 2048 = 4 tiles, 24 trailing chunks)
+# gives K6 48 panel-step updates and 255 staircase chunks per factor; the
+# heaviest chunk has rows from tile 4 on, columns of tiles 4..6 and k = 4
+# tiles: (m, n, k) = (30720, 1536, 2048)
+K6_CHUNK = (30720, 1536, 2048)
+K6_SENTINEL = 2**30
+# the routes in turns (runs 0 and 1 are each route's warm-up), as phase_main
+ROUTE_TURNS = ["kernel", "torch", "torch", "kernel", "kernel", "torch"]
+# the 2x2 grid of four gloo ranks sharing the one card: n, the input's
+# seed, the planted non-positive pivot of cholesky_info, and the
+# distributed miniapp's run
+N_GRID, GRID_SEED, GRID_BAD = 8192, 6, 2500
+GRID_MINIAPP = ["-n", "4096", "-b", "512", "--grid-rows", "2", "--grid-cols", "2",
+                "--comm-backend", "gloo", "--check", "--nruns", "1", "--nwarmups", "0"]
 
 
 def emit(phase: str, **kw) -> None:
@@ -1284,10 +1319,15 @@ def _timed_potrf(a) -> tuple[float, torch.Tensor]:
     return time.perf_counter() - t0, f
 
 
-def _residual(f, a) -> float:
-    """max|U^T U - A|, in place on the factor (leaves triu(f) in f)."""
-    u = f.triu_()
-    r = u.T @ u
+def _residual(f, a, uplo: str = "U") -> float:
+    """max|U^T U - A| (max|L L^T - A| for L), in place on the factor
+    (leaves triu(f), or tril(f), in f)."""
+    if uplo == "U":
+        u = f.triu_()
+        r = u.T @ u
+    else:
+        low = f.tril_()
+        r = low @ low.T
     return float(r.sub_(a).abs_().max())
 
 
@@ -1419,8 +1459,356 @@ def phase_info() -> None:
     emit("potrf_info", n=n, nb=nb, bad_index=bad, info=got, info_spd=int(info_ok))
 
 
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int32)
+
+
+def _k6_bound(c, y, gr, gc) -> tuple[float, str, dict]:
+    """The least time of one K6 call: the flops its kept entries need (2k
+    each) over the f32 peak, or its bytes (c read and written, x, y and
+    the index vectors read once) over HBM bandwidth, whichever is larger.
+    Beside it, the flops of the live 128 x 128 tiles, the work the kernel
+    does (it skips the dead ones)."""
+    m, n = c.shape
+    k = y.shape[0]
+    kept = int((gr >= gc).sum())
+    t = 128
+    rmax = torch.full((-(-m // t) * t,), -2**31, dtype=torch.int64, device=c.device)
+    cmin = torch.full((-(-n // t) * t,), 2**31, dtype=torch.int64, device=c.device)
+    rmax[:m], cmin[:n] = gr.reshape(-1), gc.reshape(-1)
+    live = rmax.view(-1, t).amax(1)[:, None] >= cmin.view(-1, t).amin(1)[None, :]
+    rows = torch.clamp(m - torch.arange(0, m, t, device=c.device), max=t)
+    cols = torch.clamp(n - torch.arange(0, n, t, device=c.device), max=t)
+    live_entries = int((live * rows[:, None] * cols[None, :]).sum())
+    nbytes = 4 * (2 * m * n + (m + n) * k + m + n)
+    ms = {"operations": 2 * k * kept / PEAK_F32 * 1e3, "bytes": nbytes / PEAK_BYTES * 1e3}
+    by = max(ms, key=ms.get)
+    return ms[by], by, {"kept_entries": kept, "flops": 2 * k * kept, "bytes": nbytes,
+                        "live_tile_flops": 2 * k * live_entries,
+                        "live_tile_bound_ms": 2 * k * live_entries / PEAK_F32 * 1e3}
+
+
+def _k6_case(name, c, x, y, gr, gc, kmaj, outside=None) -> dict:
+    """K6 on (c, x, y) against its plain version in f64, in place on ``c``
+    (a view), and each check beside a planted fault it must reject:
+
+      - max|K6 - f64| <= eps32 (2k max|x| max|y| + max|c|) (K2's bound),
+        shown the plain result with one live tile's mask inverted;
+      - the entries outside the mask bit-equal to the input, shown one of
+        them moved by one ulp;
+      - a second run on the same input bit-identical to the first;
+      - ``outside``, a view of the buffer next to ``c``, left unchanged.
+    """
+    m, n = c.shape
+    k = y.shape[0]
+    c0 = c.clone()
+    out0 = outside.clone() if outside is not None else None
+    keep = (gr >= gc).expand(m, n)
+    want = ksub_matmul_masked_ref(c0.double(), x.double(), y.double(), gr, gc, kmaj)
+    ksub_matmul_masked(c, x, y, gr, gc, x_k_major=kmaj)
+    got = c.clone()
+    c.copy_(c0)
+    ksub_matmul_masked(c, x, y, gr, gc, x_k_major=kmaj)
+    bound = EPS32 * (2 * k * float(x.abs().max()) * float(y.abs().max()) + float(c0.abs().max()))
+    r = {"m": m, "n": n, "k": k, "x_k_major": kmaj, "ldc": c.stride(0),
+         "kept_share": float(keep.float().mean()), "bound": bound,
+         "max_abs_err": float((got.double() - want).abs().max()),
+         "masked_out_bit_equal": bool(torch.equal(torch.where(keep, 0, _bits(got)),
+                                                  torch.where(keep, 0, _bits(c0)))),
+         "bit_identical": bool(torch.equal(_bits(got), _bits(c))),
+         "outside_unchanged": outside is None or bool(torch.equal(outside, out0))}
+    if bool(keep.any()):
+        # the plain result with the mask of the first kept entry's tile inverted
+        i, j = (int(v) // 128 * 128 for v in keep.nonzero()[0])
+        xs = (x.T if kmaj else x)[i:i + 128].double()
+        full = c0[i:i + 128, j:j + 128].double() - xs @ y[:, j:j + 128].double()
+        bad = want.clone()
+        bad[i:i + 128, j:j + 128] = torch.where(keep[i:i + 128, j:j + 128],
+                                                c0[i:i + 128, j:j + 128].double(), full)
+        r["planted_fault_err"] = float((bad - want).abs().max())
+    if not bool(keep.all()):
+        # one entry outside the mask one ulp off
+        i, j = (int(v) for v in (~keep).nonzero()[0])
+        bad = got.clone()
+        bad[i, j] = torch.nextafter(bad[i, j], torch.tensor(float("inf"), device=c.device))
+        r["planted_fault_masked_out_bit_equal"] = bool(
+            torch.equal(torch.where(keep, 0, _bits(bad)), torch.where(keep, 0, _bits(c0))))
+    emit("k6", case=name, **r)
+    require(r["max_abs_err"] <= bound, f"K6 {name}: {r['max_abs_err']} > {bound}")
+    require(r["masked_out_bit_equal"], f"K6 {name}: entries outside the mask changed")
+    require(r["bit_identical"] and r["outside_unchanged"], f"K6 {name}: {r}")
+    require(r.get("planted_fault_err", bound + 1) > bound,
+            f"K6 {name}: the error check passes an inverted tile mask")
+    require(not r.get("planted_fault_masked_out_bit_equal", False),
+            f"K6 {name}: the bit check passes a changed entry")
+    return r
+
+
+def _strided_buf(g, rows, cols, pad):
+    """A (rows, cols) view with leading dimension cols + pad, unaligned, and
+    the pad columns beside it."""
+    buf = gen.random_general(g, (rows, cols + pad), torch.float32)
+    return buf[:, pad:], buf[:, :pad]
+
+
+def phase_k6() -> None:
+    """K6 against its plain version: the distributed POTRF's own shapes at
+    n = 32768 (views into one n x n buffer, leading dimension n), the 2x2
+    grid's index pattern on ragged row-strided views in both layouts, the
+    split-k cluster path with dead and live clusters, and all-dead inputs
+    (bit-unchanged); then the heaviest chunk timed."""
+    g = torch.Generator(device=DEV).manual_seed(8)
+    n, nb = N_MAIN, NB_MAIN
+    m, w, k = K6_CHUNK
+    r0 = n - m
+    idx = torch.arange(n, device=DEV, dtype=torch.int32)
+    big = gen.random_general(g, (n, n), torch.float32)
+    rnd = functools.partial(gen.random_general, g, dtype=torch.float32)
+    worst = {"max_abs_err": 0.0, "bound": 0.0}
+
+    def keep(r):
+        if r["max_abs_err"] > worst["max_abs_err"]:
+            worst.update(max_abs_err=r["max_abs_err"], bound=r["bound"])
+
+    # the heaviest lower staircase chunk: a[t0*nb:, c0*nb:c1*nb] -= wide @ wide_t
+    cL, xL, yL = big[r0:, r0:r0 + w], rnd((m, k)), rnd((k, m))[:, :w]
+    grL, gcL = idx[r0:, None], idx[None, r0:r0 + w]
+    keep(_k6_case("chunk_lower_heaviest", cL, xL, yL, grL, gcL, False))
+    # a panel-step update (kt = 0): the panel's last 512 columns carry the sentinel
+    cols = torch.arange(nb, 4 * nb, device=DEV, dtype=torch.int32)
+    keep(_k6_case("panel_step_sentinel", big[:, nb:4 * nb], rnd((n, nb)),
+                  rnd((nb, n))[:, nb:4 * nb], idx[:, None],
+                  torch.where(cols < 3 * nb, cols, K6_SENTINEL)[None, :], False))
+    # the heaviest upper staircase chunk, i <= j on negated indices
+    keep(_k6_case("chunk_upper_heaviest", big[r0:r0 + w, r0:], rnd((m, k))[:w],
+                  rnd((k, n))[:, r0:], -idx[r0:r0 + w, None], -idx[None, r0:], False))
+    # rank (1, 0) of a 2x2 grid (64-row tiles): ragged, unaligned row-strided views
+    gr22 = global_indices(16, 64, 2, 1, DEV)[:1000, None].int()
+    gc22 = global_indices(13, 64, 2, 0, DEV)[None, :777].int()
+    for kmaj, pad in ((True, 3), (False, 5)):
+        c, side = _strided_buf(g, 1000, 777, pad)
+        x = _strided_buf(g, 1234, 1000, pad)[0] if kmaj else _strided_buf(g, 1000, 1234, pad)[0]
+        keep(_k6_case(f"grid2x2_ragged_kmajor{int(kmaj)}", c, x, _strided_buf(g, 1234, 777, pad)[0],
+                      gr22, gc22, kmaj, outside=side))
+    # the split-k cluster path (6 output tiles, k = 5000), dead and live clusters
+    c, side = _strided_buf(g, 300, 200, 2)
+    ar = torch.arange(300, device=DEV, dtype=torch.int32)
+    keep(_k6_case("split_k_mixed", c, _strided_buf(g, 300, 5000, 2)[0],
+                  _strided_buf(g, 5000, 200, 2)[0], (2 * ar)[:, None],
+                  (3 * ar[:200] + 100)[None, :], False, outside=side))
+    # all tiles dead, through the split path (16 tiles) and the unsplit one
+    for mm, kk in ((512, 512), (4096, 512)):
+        ar = torch.arange(mm, device=DEV, dtype=torch.int32)
+        keep(_k6_case(f"all_dead_{mm}", rnd((mm, mm)), rnd((mm, kk)), rnd((kk, mm)),
+                      ar[:, None], (ar + mm)[None, :], False))
+    # the heaviest chunk, timed
+    ms = cuda_ms(lambda: ksub_matmul_masked(cL, xL, yL, grL, gcL, x_k_major=False), 5)
+    plain_ms = cuda_ms(lambda: ksub_matmul_masked_ref(cL, xL, yL, grL, gcL, False), 5)
+    library_ms = cuda_ms(lambda: torch.addmm(cL, xL, yL, alpha=-1), 5)
+    bound_ms, bound_by, work = _k6_bound(cL, yL, grL, gcL)
+    emit("k6_time", m=m, n=w, k=k, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+         library="torch.addmm (unmasked)", bound_ms=bound_ms, bound_by=bound_by,
+         tflops=work["flops"] / ms / 1e9, **work)
+    KERNELS.setdefault("ksub_matmul_masked", {}).update(
+        name="ksub_matmul_masked", route="cuda", source="dlaf_tpu_torch/csrc/ksub.cu",
+        replaces="dlaf_tpu/ops/pallas/trailing.py:147", max_abs_err=worst["max_abs_err"],
+        bound=worst["bound"], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=library_ms, timed_shape=[m, w, k])
+    del big, cL, xL, yL
+    torch.cuda.empty_cache()
+
+
+def _counters() -> dict:
+    return {"potrf_tile": potrf_tile.launches, "ksub_matmul": ksub_matmul.launches,
+            "ksub_matmul_masked": ksub_matmul_masked.launches,
+            "band_to_tridiag_strips": band_to_tridiag_strips_kernel.launches,
+            "bt_apply_group": bt_apply_group.launches, "bt_apply_fused": bt_apply_fused.launches}
+
+
+def _counters_reset() -> None:
+    potrf_tile.launches = ksub_matmul.launches = ksub_matmul_masked.launches = 0
+    _count_reset()
+
+
+def _other_kept(f, a, uplo) -> bool:
+    """The factor's strict other triangle bit-equal to the input's, by
+    2048-row blocks."""
+    for i in range(0, a.shape[0], 2048):
+        tri = (lambda t: torch.triu(t, i + 1)) if uplo == "L" else (lambda t: torch.tril(t, i - 1))
+        if not torch.equal(_bits(tri(f[i:i + 2048])), _bits(tri(a[i:i + 2048]))):
+            return False
+    return True
+
+
+def _timed_cholesky(dm, uplo) -> tuple[float, torch.Tensor]:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    f = dt.cholesky(dm, uplo=uplo).data
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, f
+
+
+def phase_dist_main() -> None:
+    """The slice at full size: ``cholesky`` on a 1x1 grid at n = 32768 f32,
+    nb = 512, L then U, in turns through K1 + K6 and through the plain
+    route. Per uplo: the residual gate, the kernel route's factor against
+    the plain route's entry by entry (shown a plain-route factor with one
+    planted leaf fault), the other triangle bit-equal to the input (shown
+    one of its entries moved), K1 and K6 launched on every kernel-route
+    run (counts reset before each run and read after it), none on the
+    plain route; and the local ``potrf`` beside it."""
+    n, nb = N_MAIN, NB_MAIN
+    a = gen.random_hermitian_positive_definite(
+        torch.Generator(device=DEV).manual_seed(0), n, torch.float32)
+    dm = dt.DistMatrix.from_global(a, nb, dt.Grid((1, 1)))
+    amax = float(a.abs().max())
+    flops = n**3 / 3
+    report = {}
+    for uplo in ("L", "U"):
+        secs = {"kernel": [], "torch": []}
+        res_k, dev, launches = {}, {}, []
+        plain = None
+        for i, route in enumerate(ROUTE_TURNS):
+            _set_route(route)
+            _counters_reset()
+            t, f = _timed_cholesky(dm, uplo)
+            counts = _counters()
+            if route == "torch":
+                require(not any(counts.values()), f"dist {uplo}: the plain route launched {counts}")
+            else:
+                launches.append(counts)
+            if i >= 2:
+                secs[route].append(t)
+            if route in res_k or i < 2:
+                del f
+                continue
+            kept = _other_kept(f, a, uplo)
+            j = (0, n - 1) if uplo == "L" else (n - 1, 0)
+            f0 = f[j].clone()
+            f[j] = torch.nextafter(f0, torch.tensor(float("inf"), device=DEV))
+            planted_kept = _other_kept(f, a, uplo)
+            f[j] = f0
+            require(kept and not planted_kept,
+                    f"dist {uplo} {route}: other triangle kept {kept}, planted {planted_kept}")
+            res_k[route] = _residual(f, a, uplo) / (EPS32 * amax)
+            require(res_k[route] <= RES_K, f"dist {uplo} {route}: residual {res_k[route]} "
+                    f"eps max|A| > {RES_K}")
+            if route == "torch":
+                plain = f
+            else:
+                dev["kernel"] = factor_deviation(f, plain, ROUTE_C)
+                require(dev["kernel"] <= 1.0, f"dist {uplo}: kernel route deviates from "
+                        f"the plain route's factor: {dev['kernel']}")
+            del f
+        require(all(c == launches[0] for c in launches), f"dist {uplo}: launches vary {launches}")
+        require(launches[0]["potrf_tile"] > 0 and launches[0]["ksub_matmul_masked"] > 0,
+                f"dist {uplo}: the kernel route launched K1 and K6: {launches[0]}")
+        _set_route("torch")
+        with _planted_leaf(n // nb // 2):
+            _, f = _timed_cholesky(dm, uplo)
+        dev["planted_leaf"] = factor_deviation(f.tril_() if uplo == "L" else f.triu_(), plain,
+                                               ROUTE_C)
+        require(dev["planted_leaf"] > 1.0, f"dist {uplo}: the route check passes a planted "
+                f"leaf fault ({dev['planted_leaf']})")
+        del f, plain
+        # the local POTRF on the same matrix, through the kernels
+        _set_route("kernel")
+        local = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            f = dt.potrf(a, uplo=uplo, nb=nb, clean=False)
+            torch.cuda.synchronize()
+            local.append(time.perf_counter() - t0)
+            del f
+        best = {r: min(v) for r, v in secs.items()}
+        report[uplo] = dict(seconds=secs, tflops={r: flops / t / 1e12 for r, t in best.items()},
+                            local_seconds=local[1], local_tflops=flops / local[1] / 1e12,
+                            dist_over_local=best["kernel"] / local[1],
+                            residual_eps_max_a=res_k, factor_deviation=dev,
+                            launches=launches[0])
+        torch.cuda.empty_cache()
+    leaf.set_leaf_backend(None)
+    dt.reset_tune_parameters()
+    emit("dist_main", n=n, nb=nb, grid=[1, 1], dtype="float32", routes=ROUTE_TURNS,
+         residual_eps_max_a_bound=RES_K,
+         factor_bound=f"|F_kernel-F_torch| <= {ROUTE_C} eps32 (|F_torch| + max offdiag)",
+         **report)
+    KERNELS.setdefault("ksub_matmul_masked", {}).update(
+        launches=sum(report[u]["launches"]["ksub_matmul_masked"] for u in "LU"),
+        launches_by_uplo={u: report[u]["launches"]["ksub_matmul_masked"] for u in "LU"})
+    del a, dm
+    torch.cuda.empty_cache()
+
+
+def _grid_rank(n, nb, grid, device) -> dict:
+    """One rank of phase_dist_grid, in a process of its own: cholesky L and
+    U on the 2x2 grid, cholesky_info on a planted pivot and the distributed
+    miniapp; rank 0 then holds the gathered factors against the 1x1 grid's
+    on the same card."""
+    a = gen.random_hermitian_positive_definite(
+        torch.Generator(device=device).manual_seed(GRID_SEED), n, torch.float32)
+    out = {"rank": grid.rank, "coords": grid.coords}
+    gathered = {}
+    for uplo in ("L", "U"):
+        dm = dt.DistMatrix.from_global(a, nb, grid)
+        potrf_tile.launches = ksub_matmul_masked.launches = 0
+        t, f = _timed_cholesky(dm, uplo)
+        out[uplo] = {"seconds": t, "potrf_tile": potrf_tile.launches,
+                     "ksub_matmul_masked": ksub_matmul_masked.launches}
+        gathered[uplo] = dt.DistMatrix(f, dm.dist, grid).to_global()
+        del dm, f
+    bad = a.clone()
+    bad[GRID_BAD, GRID_BAD] = -1.0
+    out["info"] = int(dt.cholesky_info(dt.DistMatrix.from_global(bad, nb, grid))[1])
+    del bad
+    out["miniapp"] = _miniapp(GRID_MINIAPP)
+    if grid.rank == 0:
+        for uplo, tri in (("L", torch.tril), ("U", torch.triu)):
+            g = gathered[uplo]
+            ref = dt.cholesky(dt.DistMatrix.from_global(a, nb, dt.Grid((1, 1))), uplo=uplo).data
+            out[uplo]["other_kept"] = _other_kept(g, a, uplo)
+            got, want = tri(g), tri(ref)
+            out[uplo]["deviation"] = factor_deviation(got, want, ROUTE_C)
+            j = (n - 1, 0) if uplo == "L" else (0, n - 1)
+            got[j] += 1e-3 * max(1.0, float(want[j].abs()))
+            out[uplo]["planted_deviation"] = factor_deviation(got, want, ROUTE_C)
+    return out
+
+
+def phase_dist_grid() -> None:
+    """``cholesky`` on a 2x2 grid of four gloo ranks that share the card
+    (NCCL takes one rank per card), at n = 8192, nb = 512, L and U: K6
+    launched on every rank, the gathered factor within ROUTE_C of the 1x1
+    grid's entry by entry (shown one entry moved by 1e-3), the other
+    triangle bit-equal to the input, ``cholesky_info`` on a planted pivot,
+    and the distributed miniapp with ``--check``, all under ``spawn_grid``."""
+    t0 = time.perf_counter()
+    outs = spawn_grid(functools.partial(_grid_rank, N_GRID, NB_MAIN), (2, 2), backend="gloo",
+                      device="cuda", timeout=900)
+    seconds = time.perf_counter() - t0
+    tile = GRID_BAD // NB_MAIN
+    r0 = outs[0]
+    for r in outs:
+        for uplo in "LU":
+            require(r[uplo]["ksub_matmul_masked"] > 0, f"grid rank {r['rank']} {uplo}: "
+                    f"no K6 launch ({r[uplo]})")
+        require(tile * NB_MAIN < r["info"] <= (tile + 1) * NB_MAIN and r["info"] == r0["info"],
+                f"grid cholesky_info {r['info']} outside tile {tile} or differs between ranks")
+    for uplo in "LU":
+        require(r0[uplo]["other_kept"], f"grid {uplo}: the other triangle changed")
+        require(r0[uplo]["deviation"] <= 1.0 < r0[uplo]["planted_deviation"],
+                f"grid {uplo}: deviation from the 1x1 factor {r0[uplo]}")
+    require("check: PASSED" in r0["miniapp"], f"distributed miniapp: {r0['miniapp']}")
+    require(all(r["miniapp"] == "" for r in outs[1:]), "only rank 0 of the miniapp prints")
+    emit("dist_grid", n=N_GRID, nb=NB_MAIN, grid=[2, 2], backend="gloo", ranks_on_one_card=4,
+         seconds=seconds, info=r0["info"], bad_index=GRID_BAD,
+         ranks=[{k: v for k, v in r.items() if k != "miniapp"} for r in outs],
+         miniapp=r0["miniapp"].strip().splitlines())
+
+
 PHASES = (phase_device, phase_k1, phase_k2, phase_main, phase_miniapp, phase_info,
-          phase_k3, phase_eigh_main, phase_eigh_c64, phase_miniapp_eigensolver, phase_k45,
+          phase_k6, phase_dist_main, phase_dist_grid, phase_k3, phase_eigh_main, phase_eigh_c64, phase_miniapp_eigensolver, phase_k45,
           phase_eigh_large_main, phase_eigh_large_cases)
 
 
@@ -1434,7 +1822,8 @@ def main() -> None:
     print(smi_line())
     print(json.dumps({"kernels": [KERNELS[k] for k in ("potrf_tile", "ksub_matmul",
                                                        "band_to_tridiag_strips",
-                                                       "bt_apply_group", "bt_apply_fused")]}))
+                                                       "bt_apply_group", "bt_apply_fused",
+                                                       "ksub_matmul_masked")]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                             "kind": torch.cuda.get_device_name(0),
                                             "count": torch.cuda.device_count()}}))

@@ -7,21 +7,28 @@ module paths. Ported so far: the local Cholesky factorization (``potrf``,
 (``eigh_large``, ``eigvalsh_large``) end to end, with hand-written Hopper
 kernels for their five TPU kernels (``ops/kernels``, sources in
 ``csrc/``), the tuning parameters, the matrix generators and the Cholesky
-and eigensolver miniapps. The package never imports JAX.
+and eigensolver miniapps. The distributed data model (``dist``,
+``comm`` on ``torch.distributed``, ``DistMatrix``) and the distributed
+Cholesky (``cholesky``, ``cholesky_info``, with kernel K6) run one process
+per rank of a process ``Grid``. The package never imports JAX.
 """
 from . import types
+from .algos.cholesky import cholesky, cholesky_info
 from .algos.eigensolver.band2tridiag import band_to_tridiag_auto
 from .algos.eigensolver.driver import _phase_normalize, eigh, get_band_size
 from .algos.eigensolver.large import eigh_large, eigvalsh_large
 from .algos.eigensolver.red2band import extract_band, reduction_to_band
 from .algos.eigensolver.tridiag_dc import tridiag_eigh
 from .api.local import potrf, potrf_info
+from .comm.mesh import Grid
+from .matrix.dist_matrix import DistMatrix
 from .ops.core import ct
 from .tune import (TuneParameters, from_dict, get_tune_parameters,
                    reset_tune_parameters, set_tune_parameters)
 
 __all__ = ["types", "potrf", "potrf_info", "eigh", "eigvalsh", "eigh_large",
-           "eigvalsh_large", "TuneParameters",
+           "eigvalsh_large", "cholesky", "cholesky_info", "DistMatrix", "Grid",
+           "TuneParameters",
            "from_dict", "get_tune_parameters", "reset_tune_parameters",
            "set_tune_parameters"]
 

@@ -1,0 +1,108 @@
+"""Grid collectives on ``torch.distributed``.
+
+Counterpart of :mod:`dlaf_tpu.comm.collectives`. The JAX functions run
+inside one SPMD program and take a mesh axis; these run on every rank of a
+:class:`~dlaf_tpu_torch.comm.mesh.Grid` and take the grid too. Broadcast is
+``dist.broadcast`` from the owner's global rank (JAX: a masked ``psum``),
+gather is ``all_gather`` over the axis group, returned in coordinate order.
+Every rank of the axis (or grid) must make the same call in the same order.
+
+Over a size-1 axis each function is the identity: it returns its input, so
+the result may share storage with it (callers pass tensors they computed;
+the kernels' wrappers refuse operands that overlap their output).
+
+The gloo backend is the one the caller chose for CUDA tensors on one card
+(NCCL refuses two ranks on one GPU): there each call copies the tensor to
+the host, runs the collective there and copies the result back. Nothing
+picks a backend or swaps one for another.
+"""
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+from .mesh import Grid
+
+
+def _via_host(t: torch.Tensor, group) -> bool:
+    return t.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def _broadcast_(buf: torch.Tensor, src: int, group) -> None:
+    """``buf`` (contiguous) from global rank ``src`` to every rank of ``group``, in place."""
+    if not _via_host(buf, group):
+        dist.broadcast(buf, src=src, group=group)
+        return
+    host = buf.cpu()
+    dist.broadcast(host, src=src, group=group)
+    if dist.get_rank() != src:
+        buf.copy_(host)
+
+
+def _send_buffer(x: torch.Tensor, sending: bool) -> torch.Tensor:
+    if sending:
+        return x.contiguous()
+    return torch.empty(x.shape, dtype=x.dtype, device=x.device)
+
+
+def bcast(x: torch.Tensor, owner: int, axis: str, grid: Grid) -> torch.Tensor:
+    """Broadcast ``x`` from the rank with coordinate ``owner`` along
+    ``axis`` (reference ``schedule_bcast_send/recv``,
+    ``kernels/broadcast.h:39``). On the other ranks ``x`` gives only the
+    shape, dtype and device; they get a new tensor."""
+    if grid.axis_size(axis) == 1:
+        return x
+    buf = _send_buffer(x, grid.axis_index(axis) == owner)
+    _broadcast_(buf, grid.axis_ranks(axis)[owner], grid.group(axis))
+    return buf
+
+
+def bcast2d(x: torch.Tensor, owner_rc, grid: Grid) -> torch.Tensor:
+    """Broadcast from the single rank ``owner_rc`` = (p, q) to the whole grid."""
+    if grid.size == 1:
+        return x
+    src = grid.rank_of(*owner_rc)
+    buf = _send_buffer(x, grid.rank == src)
+    _broadcast_(buf, src, None)
+    return buf
+
+
+def allreduce_sum(x: torch.Tensor, axis, grid: Grid) -> torch.Tensor:
+    """Sum over ``axis`` (None: the whole grid) as a new tensor
+    (reference ``scheduleAllReduce``)."""
+    n = grid.size if axis is None else grid.axis_size(axis)
+    if n == 1:
+        return x
+    group = grid.group(axis)
+    out = x.clone(memory_format=torch.contiguous_format)
+    if _via_host(out, group):
+        host = out.cpu()
+        dist.all_reduce(host, group=group)
+        return out.copy_(host)
+    dist.all_reduce(out, group=group)
+    return out
+
+
+def allgather_tiles(x: torch.Tensor, axis, grid: Grid) -> torch.Tensor:
+    """Gather ``x`` over ``axis`` (None: the whole grid, in rank order) ->
+    a new leading dimension, in coordinate order (p for ``ROW_AXIS``, q for
+    ``COL_AXIS``)."""
+    if axis is None:
+        if grid.size == 1:
+            return x[None]
+        ranks = list(range(grid.size))
+    else:
+        if grid.axis_size(axis) == 1:
+            return x[None]
+        ranks = grid.axis_ranks(axis)
+    group = grid.group(axis)
+    send = x.contiguous()
+    host = _via_host(send, group)
+    if host:
+        send = send.cpu()
+    parts = [torch.empty_like(send) for _ in ranks]
+    dist.all_gather(parts, send, group=group)
+    if group is not None:
+        parts = [parts[dist.get_group_rank(group, r)] for r in ranks]
+    out = torch.stack(parts)
+    return out.to(x.device) if host else out

@@ -1,4 +1,4 @@
-// K2: fused trailing update C <- C - op(X) Y on Hopper (sm_90a), f32.
+// K2 and K6: fused trailing update C <- C - op(X) Y on Hopper (sm_90a), f32.
 //
 // Replaces the Pallas TPU kernel dlaf_tpu/ops/pallas/trailing.py
 // ksub_matmul (_ksub_kernel). As there, the product and the subtract share
@@ -31,8 +31,23 @@
 // partials through distributed shared memory, in the fixed order 0..S-1
 // (deterministic), and subtracts the sum from C. The partial products stay
 // on chip, and C is still read once and written once.
+//
+// K6, the masked instantiation (kMasked), replaces the Pallas TPU kernel
+// dlaf_tpu/ops/pallas/trailing.py ksub_matmul_masked (_ksub_kernel_masked):
+// the distributed POTRF's trailing updates, C - op(X) Y only where
+// grow[i] >= gcol[j] (int32 global row and column indices; a sentinel
+// column index above every row index, or both vectors negated for the
+// upper mask i <= j, are plain compares). Same bound as K2 (at n = 32768 on
+// one card the heaviest call is m = 30720, n = 1536, k = 2048: f32 FFMA
+// bound) and the same design, plus: each block first loads its tile's slice of grow and gcol into shared
+// memory and reduces max(grow) and min(gcol). A dead tile (max < min: wholly
+// above the diagonal) returns at once, so C is neither read nor written
+// there and the staircase's conservative chunks cost only their live
+// tiles. A live tile accumulates as K2 does and subtracts in the epilogue
+// only where the mask holds; entries outside it are not written.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace cg = cooperative_groups;
@@ -45,6 +60,7 @@ constexpr int kAStride = BM + 4;
 constexpr int kLoads = BM * BK / kThreads;   // elements per thread per tile
 constexpr int kMaxSplit = 8;                 // portable cluster size
 constexpr size_t kSplitSmem = sizeof(float) * BM * BN;   // one partial tile
+static_assert(kThreads == BM + BN, "K6 loads one index per thread");
 
 // C[gm][gn..gn+3] -= v, float4 where aligned and whole
 __device__ __forceinline__ void sub4(float* c, long long ldc, bool vec, int gm, int gn,
@@ -62,17 +78,57 @@ __device__ __forceinline__ void sub4(float* c, long long ldc, bool vec, int gm, 
   }
 }
 
+// sub4 where gr >= gc[j] (K6's mask): entries outside it are not written
+__device__ __forceinline__ void sub4_masked(float* c, long long ldc, bool vec, int gm, int gn,
+                                            int n, float4 v, int gr, const int* gc) {
+  const bool keep[4] = {gr >= gc[0], gr >= gc[1], gr >= gc[2], gr >= gc[3]};
+  if (keep[0] && keep[1] && keep[2] && keep[3]) {
+    sub4(c, ldc, vec, gm, gn, n, v);
+    return;
+  }
+  float* p = c + gm * ldc + gn;
+  const float w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (keep[j] && gn + j < n) p[j] -= w[j];
+}
+
 // two blocks per SM (<= 128 registers a thread) is what hides the latency
-template <bool kSplit>
+template <bool kSplit, bool kMasked>
 __global__ void __launch_bounds__(kThreads, 2)
 ksub_kernel(float* __restrict__ c, long long ldc, const float* __restrict__ x,
             long long ldx, const float* __restrict__ y, long long ldy,
-            int m, int n, int k, int x_k_major, int kchunk) {
+            int m, int n, int k, int x_k_major, int kchunk,
+            const int* __restrict__ grow, const int* __restrict__ gcol) {
   __shared__ __align__(16) float As[2][BK][kAStride];
   __shared__ __align__(16) float Bs[2][BK][BN];
   extern __shared__ __align__(16) float part[];   // [BM][BN], split > 1 only
+  // K6 only: the tile's row and column indices, and per-warp max/min
+  __shared__ int sgr[kMasked ? BM : 1], sgc[kMasked ? BN : 1], sred[kMasked ? kThreads / 32 : 1];
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  if constexpr (kMasked) {
+    // threads 0..127 load row indices, 128..255 column indices; rows past m
+    // and columns past n can never be updated
+    int v;
+    if (tid < BM) {
+      v = m0 + tid < m ? grow[m0 + tid] : INT_MIN;
+      sgr[tid] = v;
+    } else {
+      v = n0 + tid - BM < n ? gcol[n0 + tid - BM] : INT_MAX;
+      sgc[tid - BM] = v;
+    }
+    const int r = tid < BM ? __reduce_max_sync(0xffffffffu, v) : __reduce_min_sync(0xffffffffu, v);
+    if (tid % 32 == 0) sred[tid / 32] = r;
+    __syncthreads();
+    const int rmax = max(max(sred[0], sred[1]), max(sred[2], sred[3]));
+    const int cmin = min(min(sred[4], sred[5]), min(sred[6], sred[7]));
+    // A dead tile keeps C as it is: no product, no read, no write. The S
+    // blocks of a split cluster all share this output tile (the cluster
+    // spans blockIdx.z only), so they are dead together and all return
+    // here, before either cluster.sync(): no block waits on one that left.
+    if (rmax < cmin) return;
+  }
   const int split = kSplit ? gridDim.z : 1;
   const int kbeg = kSplit ? blockIdx.z * kchunk : 0, kend = kSplit ? min(k, kbeg + kchunk) : k;
 
@@ -141,9 +197,15 @@ ksub_kernel(float* __restrict__ c, long long ldc, const float* __restrict__ x,
       const int gm = m0 + ty * 4 + (i & 3) + (i >> 2) * 64;
       if (gm >= m) continue;
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
-        sub4(c, ldc, vec, gm, n0 + tx * 4 + h * 64, n,
-             make_float4(acc[i][h * 4], acc[i][h * 4 + 1], acc[i][h * 4 + 2], acc[i][h * 4 + 3]));
+      for (int h = 0; h < 2; ++h) {
+        const float4 v =
+            make_float4(acc[i][h * 4], acc[i][h * 4 + 1], acc[i][h * 4 + 2], acc[i][h * 4 + 3]);
+        if constexpr (kMasked)
+          sub4_masked(c, ldc, vec, gm, n0 + tx * 4 + h * 64, n, v,
+                      sgr[gm - m0], &sgc[tx * 4 + h * 64]);
+        else
+          sub4(c, ldc, vec, gm, n0 + tx * 4 + h * 64, n, v);
+      }
     }
     return;
   }
@@ -168,7 +230,11 @@ ksub_kernel(float* __restrict__ c, long long ldc, const float* __restrict__ x,
           cluster.map_shared_rank(part, q) + r * BN + cc);
       v.x += p.x; v.y += p.y; v.z += p.z; v.w += p.w;
     }
-    if (m0 + r < m) sub4(c, ldc, vec, m0 + r, n0 + cc, n, v);
+    if (m0 + r >= m) continue;
+    if constexpr (kMasked)
+      sub4_masked(c, ldc, vec, m0 + r, n0 + cc, n, v, sgr[r], &sgc[cc]);
+    else
+      sub4(c, ldc, vec, m0 + r, n0 + cc, n, v);
   }
   cluster.sync();                          // keep each partial alive until read
 }
@@ -183,11 +249,10 @@ int num_sms() {
   return sms;
 }
 
-}  // namespace
-
-extern "C" int dlaf_ksub(void* c, long long ldc, const void* x, long long ldx,
-                         const void* y, long long ldy, int m, int n, int k,
-                         int x_k_major, void* stream) {
+// K2 (grow == gcol == nullptr) and K6 share the launch plan
+template <bool kMasked>
+int launch(void* c, long long ldc, const void* x, long long ldx, const void* y, long long ldy,
+           const int* grow, const int* gcol, int m, int n, int k, int x_k_major, void* stream) {
   if (m <= 0 || n <= 0 || k <= 0) return (int)cudaErrorInvalidValue;
   const int tiles_n = (n + BN - 1) / BN, tiles_m = (m + BM - 1) / BM;
   // fewer output tiles than SMs: split k, doubling while the grid stays
@@ -199,7 +264,7 @@ extern "C" int dlaf_ksub(void* c, long long ldc, const void* x, long long ldx,
     split *= 2;
   const int kchunk = ((k + split - 1) / split + BK - 1) / BK * BK;
   static const cudaError_t attr_err = cudaFuncSetAttribute(
-      ksub_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSplitSmem);
+      ksub_kernel<true, kMasked>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSplitSmem);
   if (attr_err != cudaSuccess) return (int)attr_err;
 
   cudaLaunchConfig_t cfg = {};
@@ -214,13 +279,30 @@ extern "C" int dlaf_ksub(void* c, long long ldc, const void* x, long long ldx,
   attr[0].val.clusterDim.z = split;
   cfg.attrs = attr;
   cfg.numAttrs = split > 1 ? 1 : 0;
-  auto kernel = split > 1 ? ksub_kernel<true> : ksub_kernel<false>;
+  auto kernel = split > 1 ? ksub_kernel<true, kMasked> : ksub_kernel<false, kMasked>;
   cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, static_cast<float*>(c), ldc,
                                      static_cast<const float*>(x), ldx,
                                      static_cast<const float*>(y), ldy, m, n, k, x_k_major,
-                                     kchunk);
+                                     kchunk, grow, gcol);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int dlaf_ksub(void* c, long long ldc, const void* x, long long ldx,
+                         const void* y, long long ldy, int m, int n, int k,
+                         int x_k_major, void* stream) {
+  return launch<false>(c, ldc, x, ldx, y, ldy, nullptr, nullptr, m, n, k, x_k_major, stream);
+}
+
+// K6: grow (m) and gcol (n) are contiguous int32 vectors
+extern "C" int dlaf_ksub_masked(void* c, long long ldc, const void* x, long long ldx,
+                                const void* y, long long ldy, const void* grow,
+                                const void* gcol, int m, int n, int k, int x_k_major,
+                                void* stream) {
+  return launch<true>(c, ldc, x, ldx, y, ldy, static_cast<const int*>(grow),
+                      static_cast<const int*>(gcol), m, n, k, x_k_major, stream);
 }
 
 extern "C" const char* dlaf_cuda_error_string(int e) {

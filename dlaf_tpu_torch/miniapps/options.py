@@ -9,14 +9,26 @@ The device is explicit (``--device``, default ``cuda``): a run asked for
 the card fails where there is none, it never moves to the CPU. Options that
 only other miniapps read (``--m``) and ``--input-file`` /
 ``--output-file`` (which need ``matrix/io.py``) come with later slices.
+
+A grid larger than 1x1 (``--grid-rows``/``--grid-cols``) is a distributed
+run: one process per rank, started by ``torchrun --nproc-per-node P*Q``
+(or already joined in a process group, as ``comm.launch.spawn_grid``
+does). Rank r runs on ``cuda:{r % device_count}``; the process group's
+backend is ``--comm-backend`` (default nccl on CUDA, gloo on the CPU; gloo
+for several ranks on one card). Only rank 0 prints.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import time
 
 import torch
+import torch.distributed as dist
+
+from ..comm.launch import rank_device
+from ..comm.mesh import Grid
 
 
 def parser(name: str) -> argparse.ArgumentParser:
@@ -37,6 +49,9 @@ def parser(name: str) -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda; 'cpu' runs the "
                         "plain versions of the kernels)")
+    p.add_argument("--comm-backend", choices=["nccl", "gloo"], default=None,
+                   help="torch.distributed backend of a distributed run (default: nccl "
+                        "on cuda, gloo on cpu)")
     p.add_argument("--trace", default=None, metavar="DIR",
                    help="write a torch.profiler trace of the timed runs to "
                         "DIR/trace.json (chrome trace format)")
@@ -48,23 +63,70 @@ def dtype_of(args) -> torch.dtype:
             "c": torch.complex64, "z": torch.complex128}[args.type]
 
 
+def _distributed() -> bool:
+    return dist.is_initialized() and dist.get_world_size() > 1
+
+
 def device_of(args) -> torch.device:
+    """The run's device; in a distributed run, rank r's card is
+    ``cuda:{r % device_count}``."""
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device is available")
+    if dev.type == "cuda" and _distributed():
+        dev = rank_device("cuda", dist.get_rank())
     return dev
 
 
+@contextlib.contextmanager
+def process_grid(args):
+    """The process grid of a distributed run (``--grid-rows``·``--grid-cols``
+    > 1), else None. Joins the process group ``torchrun`` describes unless
+    one is already up, and leaves it on exit if it joined it here. Raises
+    where the world size is not P·Q, or the group's backend is not the
+    ``--comm-backend`` asked for."""
+    P, Q = args.grid_rows, args.grid_cols
+    if P * Q == 1:
+        yield None
+        return
+    joined = not dist.is_initialized()
+    if joined:
+        world = int(os.environ.get("WORLD_SIZE", "1"))
+        if world != P * Q:
+            raise ValueError(f"grid {P}x{Q} needs {P * Q} ranks, have {world}: run it "
+                             f"under torchrun --nproc-per-node {P * Q}")
+        backend = args.comm_backend or \
+            ("nccl" if torch.device(args.device).type == "cuda" else "gloo")
+        dist.init_process_group(backend, init_method="env://")
+    try:
+        if args.comm_backend is not None and dist.get_backend() != args.comm_backend:
+            raise ValueError(f"--comm-backend {args.comm_backend}: the process group "
+                             f"runs {dist.get_backend()}")
+        if torch.device(args.device).type == "cuda":
+            torch.cuda.set_device(device_of(args))
+        yield Grid((P, Q))
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
 def sync(device: torch.device) -> None:
-    """Fence: wait until the device has finished all queued work."""
+    """Fence: wait until the device has finished all queued work, and in a
+    distributed run until every rank has (the reference's
+    ``waitLocalTiles`` + ``MPI_Barrier``)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+    if _distributed():
+        dist.barrier()
 
 
 def run_timed(args, fn, flop_count, check_fn=None):
-    """Warm-ups + timed runs; prints a per-run line and a CSVData-2 row."""
+    """Warm-ups + timed runs; prints a per-run line and a CSVData-2 row
+    (rank 0 only in a distributed run, where every rank calls it)."""
     device = device_of(args)
     backend = device.type
+    rank = dist.get_rank() if _distributed() else 0
+    say = print if rank == 0 else (lambda *a, **k: None)
     if args.nwarmups + args.nruns < 1:
         raise ValueError("need at least one run")
     out = None
@@ -85,23 +147,23 @@ def run_timed(args, fn, flop_count, check_fn=None):
             continue
         run = r - args.nwarmups
         gflops = flop_count / t / 1e9 if flop_count else 0.0
-        print(f"[{run}] {t:.6f}s {gflops:.2f}GFlop/s "
-              f"({args.matrix_size}, {args.block_size}) "
-              f"({args.grid_rows}, {args.grid_cols}) {backend}")
+        say(f"[{run}] {t:.6f}s {gflops:.2f}GFlop/s "
+            f"({args.matrix_size}, {args.block_size}) "
+            f"({args.grid_rows}, {args.grid_cols}) {backend}")
         row = ["CSVData-2", str(run), f"{t:.6f}", f"{gflops:.2f}",
                args.type, args.uplo, str(args.matrix_size),
                str(args.block_size), str(args.grid_rows),
                str(args.grid_cols), "1", backend]
-        print(", ".join(row))
+        say(", ".join(row))
     if prof is not None:
         prof.stop()
         os.makedirs(args.trace, exist_ok=True)
-        path = os.path.join(args.trace, "trace.json")
+        path = os.path.join(args.trace, f"trace.rank{rank}.json" if rank else "trace.json")
         prof.export_chrome_trace(path)
-        print(f"trace: {path}")
+        say(f"trace: {path}")
     if args.check and check_fn is not None:
         ok, msg = check_fn(out)
-        print(f"check: {'PASSED' if ok else 'FAILED'} ({msg})")
+        say(f"check: {'PASSED' if ok else 'FAILED'} ({msg})")
         if not ok:
             raise SystemExit(1)
     return out

@@ -40,6 +40,8 @@ SIGNATURES = {
     "ksub": {
         # c, ldc, x, ldx, y, ldy, m, n, k, x_k_major, stream
         "dlaf_ksub": [_P, _LL, _P, _LL, _P, _LL, _I, _I, _I, _I, _P],
+        # c, ldc, x, ldx, y, ldy, grow, gcol, m, n, k, x_k_major, stream
+        "dlaf_ksub_masked": [_P, _LL, _P, _LL, _P, _LL, _P, _P, _I, _I, _I, _I, _P],
     },
     "band2tridiag": {
         # strips, vs, taus, n, b, nrec, sweep_lo, is_complex, stream

@@ -1,15 +1,19 @@
-"""K2: fused trailing update C <- C - op(X) Y — hand-written Hopper kernel.
+"""K2 and K6: fused trailing updates C <- C - op(X) Y — hand-written Hopper kernels.
 
-Replaces the Pallas kernel ``dlaf_tpu/ops/pallas/trailing.py``
-``ksub_matmul`` (``_ksub_kernel``). The CUDA source is
-``dlaf_tpu_torch/csrc/ksub.cu``: the product and the subtract share one
-register accumulator, so the product never reaches device memory, and C is
-read once and written once, in place. Products are plain f32 FFMA (never
-TF32), the accuracy of the JAX package's ``HIGHEST`` route.
+K2 replaces the Pallas kernel ``dlaf_tpu/ops/pallas/trailing.py``
+``ksub_matmul`` (``_ksub_kernel``); K6 replaces ``ksub_matmul_masked``
+(``_ksub_kernel_masked``), the same update restricted to the entries whose
+global row index is at least their global column index (the distributed
+POTRF's trailing updates). Both are ``dlaf_tpu_torch/csrc/ksub.cu``: the
+product and the subtract share one register accumulator, so the product
+never reaches device memory, and C is read once and written once, in
+place. K6 skips the tiles its mask leaves wholly untouched. Products are
+plain f32 FFMA (never TF32), the accuracy of the JAX package's ``HIGHEST``
+route.
 
-:func:`ksub_matmul` dispatches on the tensor's device: a CPU tensor takes the
-plain version :func:`ksub_matmul_ref`; a CUDA tensor launches the kernel or
-raises.
+:func:`ksub_matmul` and :func:`ksub_matmul_masked` dispatch on the tensor's
+device: a CPU tensor takes the plain version; a CUDA tensor launches the
+kernel or raises.
 """
 from __future__ import annotations
 
@@ -27,11 +31,55 @@ def ksub_matmul_ref(c, x, y, x_k_major: bool = True) -> torch.Tensor:
     return c - _op(x, x_k_major) @ y
 
 
+def ksub_matmul_masked_ref(c, x, y, grow, gcol, x_k_major: bool = True) -> torch.Tensor:
+    """Plain version of K6: ``c - op(x) @ y`` where ``grow >= gcol``, else
+    ``c``, as a new tensor."""
+    return torch.where(grow >= gcol, c - _op(x, x_k_major) @ y, c)
+
+
 def ksub_available(c, x, y, x_k_major: bool = True) -> bool:
-    """Whether :func:`ksub_matmul` takes these operands: f32 throughout.
-    The kernel masks ragged edges itself, so no shape condition applies;
-    the device decides the route inside :func:`ksub_matmul`."""
+    """Whether :func:`ksub_matmul` (and :func:`ksub_matmul_masked`) take
+    these operands: f32 throughout. The kernels mask ragged edges
+    themselves, so no shape condition applies; the device decides the
+    route inside the wrapper."""
     return c.dtype == x.dtype == y.dtype == torch.float32
+
+
+def _span(t: torch.Tensor) -> tuple:
+    """[first, last] byte addresses the tensor's elements can touch."""
+    last = sum((s - 1) * st for s, st in zip(t.shape, t.stride()))
+    return t.data_ptr(), t.data_ptr() + (last + 1) * t.element_size() - 1
+
+
+def _check_no_overlap(what: str, c, *operands) -> None:
+    """The kernels write ``c`` while they read the operands: refuse any
+    operand whose storage range intersects ``c``'s."""
+    if c.numel() == 0:
+        return
+    c0, c1 = _span(c)
+    for name, t in zip("xy", operands):
+        if t.numel() and t.device == c.device:
+            t0, t1 = _span(t)
+            if t0 <= c1 and c0 <= t1:
+                raise ValueError(f"{what}: c overlaps {name} in memory")
+
+
+def _shapes(what, c, x, y, x_k_major):
+    m, n = c.shape
+    k = x.shape[0] if x_k_major else x.shape[1]
+    if tuple(_op(x, x_k_major).shape) != (m, k) or tuple(y.shape) != (k, n):
+        raise ValueError(f"{what} shapes: c {tuple(c.shape)}, x {tuple(x.shape)}"
+                         f" (x_k_major={x_k_major}), y {tuple(y.shape)}")
+    return m, n, k
+
+
+def _check_cuda(what, c, x, y):
+    if not ksub_available(c, x, y):
+        raise TypeError(f"{what} kernel takes f32, got {c.dtype}, {x.dtype}, {y.dtype}")
+    if not (x.device == y.device == c.device):
+        raise ValueError(f"{what} operands on different devices")
+    if any(t.stride(1) != 1 for t in (c, x, y)):
+        raise ValueError(f"{what} needs unit column stride on c, x and y")
 
 
 def ksub_matmul(c, x, y, x_k_major: bool = True) -> torch.Tensor:
@@ -41,21 +89,15 @@ def ksub_matmul(c, x, y, x_k_major: bool = True) -> torch.Tensor:
     transpose: the upper-POTRF panel layout) or (m, k) otherwise (plain NN).
     Operands may be row-strided views into a larger matrix: the kernel
     takes leading dimensions, so no copy is made, but each needs unit
-    column stride. ``c`` must not overlap ``x`` or ``y``.
+    column stride. ``c``'s storage range must not intersect ``x``'s or
+    ``y``'s (it raises).
     """
-    m, n = c.shape
-    k = x.shape[0] if x_k_major else x.shape[1]
-    if tuple(_op(x, x_k_major).shape) != (m, k) or tuple(y.shape) != (k, n):
-        raise ValueError(f"ksub_matmul shapes: c {tuple(c.shape)}, x {tuple(x.shape)}"
-                         f" (x_k_major={x_k_major}), y {tuple(y.shape)}")
+    m, n, k = _shapes("ksub_matmul", c, x, y, x_k_major)
     if not _build.on_cuda(c):
+        _check_no_overlap("ksub_matmul", c, x, y)
         return c.copy_(ksub_matmul_ref(c, x, y, x_k_major))
-    if not ksub_available(c, x, y):
-        raise TypeError(f"ksub_matmul kernel takes f32, got {c.dtype}, {x.dtype}, {y.dtype}")
-    if not (x.device == y.device == c.device):
-        raise ValueError("ksub_matmul operands on different devices")
-    if any(t.stride(1) != 1 for t in (c, x, y)):
-        raise ValueError("ksub_matmul needs unit column stride on c, x and y")
+    _check_cuda("ksub_matmul", c, x, y)
+    _check_no_overlap("ksub_matmul", c, x, y)
     if m == 0 or n == 0 or k == 0:
         return c
     lib = _build.library("ksub")
@@ -69,3 +111,48 @@ def ksub_matmul(c, x, y, x_k_major: bool = True) -> torch.Tensor:
 
 
 ksub_matmul.launches = 0
+
+
+def ksub_matmul_masked(c, x, y, grow, gcol, x_k_major: bool = True) -> torch.Tensor:
+    """K6: C - op(X) Y written into ``c`` only where ``grow[i] >= gcol[j]``
+    (elsewhere ``c`` is not written); returns ``c``.
+
+    Operands as in :func:`ksub_matmul`, with unit column stride on every
+    device. ``grow`` (m, 1) and ``gcol`` (1, n)
+    are integer global indices (int32 for the kernel; any strides): the
+    distributed POTRF passes global element indices, a sentinel above
+    every row index for columns it must not update, and both vectors
+    negated for the upper triangle's i <= j.
+    """
+    m, n, k = _shapes("ksub_matmul_masked", c, x, y, x_k_major)
+    if tuple(grow.shape) != (m, 1) or tuple(gcol.shape) != (1, n):
+        raise ValueError(f"ksub_matmul_masked index shapes: grow {tuple(grow.shape)}, "
+                         f"gcol {tuple(gcol.shape)}, want ({m}, 1), (1, {n})")
+    if any(t.stride(1) != 1 for t in (c, x, y)):
+        # the kernel's layout, held on the CPU too, so that CPU runs hold
+        # the callers to it
+        raise ValueError("ksub_matmul_masked needs unit column stride on c, x and y")
+    if not _build.on_cuda(c):
+        _check_no_overlap("ksub_matmul_masked", c, x, y)
+        return c.copy_(ksub_matmul_masked_ref(c, x, y, grow, gcol, x_k_major))
+    _check_cuda("ksub_matmul_masked", c, x, y)
+    _check_no_overlap("ksub_matmul_masked", c, x, y)
+    if grow.dtype != torch.int32 or gcol.dtype != torch.int32:
+        raise TypeError(f"ksub_matmul_masked kernel takes int32 indices, got "
+                        f"{grow.dtype}, {gcol.dtype}")
+    if not (grow.device == gcol.device == c.device):
+        raise ValueError("ksub_matmul_masked indices on another device")
+    if m == 0 or n == 0 or k == 0:
+        return c
+    gr, gc = grow.reshape(m).contiguous(), gcol.reshape(n).contiguous()
+    lib = _build.library("ksub")
+    with torch.cuda.device(c.device):
+        rc = lib.dlaf_ksub_masked(c.data_ptr(), c.stride(0), x.data_ptr(), x.stride(0),
+                                  y.data_ptr(), y.stride(0), gr.data_ptr(), gc.data_ptr(),
+                                  m, n, k, int(x_k_major), _build.stream_of(c))
+    _build.check(rc, lib, "ksub_matmul_masked")
+    ksub_matmul_masked.launches += 1
+    return c
+
+
+ksub_matmul_masked.launches = 0

@@ -28,7 +28,8 @@ class TuneParameters:
     # micro panel width inside the potrf leaf kernel (JAX/TPU kernel only;
     # the Hopper kernel derives its own, csrc/potrf_tile.cu)
     potrf_panel_size: int = 8
-    # distributed POTRF wide-panel width and trailing chunks (not ported yet)
+    # distributed POTRF (algos/cholesky.py): wide-panel width in elements
+    # and the number of staircase chunks of each trailing update
     potrf_dist_panel_width: int = 2048
     potrf_dist_trail_chunks: int = 24
     # eigensolver: smallest band of get_band_size, sweeps per compact-WY
@@ -45,10 +46,11 @@ class TuneParameters:
     # chase on other CUDA tensors, the batched dense chase on the CPU),
     # "kernel" (K3 or raise), "strips", "pipelined", "sequential"
     band_to_tridiag_kernel: str = "auto"
-    # trailing-update route of the (upper) POTRF hot loop: "torch"
-    # (torch.matmul + subtract) or "kernel" (ops/kernels/trailing.py: the
-    # product and the subtract in one register accumulator). "kernel" is
-    # the default so that the main path on the card runs the hand kernel.
+    # trailing-update route of the POTRF hot loops (the local upper POTRF,
+    # K2, and the distributed POTRF, K6): "torch" (torch.matmul + subtract,
+    # masked with where) or "kernel" (ops/kernels/trailing.py: the product
+    # and the subtract in one register accumulator). "kernel" is the
+    # default so that the main path on the card runs the hand kernels.
     potrf_trailing_kernel: str = "kernel"
     band_to_tridiag_dist_mode: str = "replicated"
     # f32 products always run in full f32 (ops/core.py turns TF32 off); the

@@ -49,9 +49,31 @@ def test_miniapp_trace(tmp_path, capsys):
 
 
 def test_miniapp_grid_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """A grid larger than 1x1 is a distributed run: outside torchrun (no
+    process group, world size 1) a 2x2 grid is refused, with the command
+    that runs it."""
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 4"):
         miniapp_cholesky.main(["-n", "64", "--grid-rows", "2", "--grid-cols", "2",
                                "--device", "cpu"])
+
+
+@pytest.mark.parametrize("uplo", ["L", "U"])
+def test_miniapp_cholesky_distributed(uplo):
+    """The distributed branch on a 2x2 grid of spawned gloo ranks: rank 0
+    prints the run and --check passes; the other ranks print nothing."""
+    import functools
+
+    import torch_dist_ranks as ranks
+    from dlaf_tpu_torch.comm.launch import spawn_grid
+
+    argv = ["-n", "256", "-b", "32", "--grid-rows", "2", "--grid-cols", "2", "--uplo", uplo,
+            "--check", "--nruns", "1", "--nwarmups", "0", "--device", "cpu",
+            "--comm-backend", "gloo"]
+    outs = spawn_grid(functools.partial(ranks.miniapp, argv), (2, 2), backend="gloo",
+                      device="cpu", timeout=300)
+    assert "check: PASSED" in outs[0]
+    assert _csv(outs[0])[4:] == ["s", uplo, "256", "32", "2", "2", "1", "cpu"]
+    assert outs[1:] == ["", "", ""]
 
 
 @pytest.mark.parametrize("typ", ["s", "d", "c"])
