@@ -4,7 +4,10 @@
 
 Builds the Hopper kernels from ``dlaf_tpu_torch/csrc`` (nvcc, at first
 use), holds each kernel against its plain PyTorch version at the shapes
-the main path gives it, then drives the main path, the local Cholesky
+the main path gives it (K1, the cluster tile factor, at nb = 64 up to its
+largest 1808; K2, the 3xTF32 tensor-core update, beside its one- and
+two-term TF32 splits as planted faults that its bound must reject), then
+drives the main path, the local Cholesky
 ``dlaf_tpu_torch.potrf`` at n = 32768 f32 (the headline configuration of
 ``bench.py``), through the kernels and through the plain route, and checks
 the factor's residual and the kernel route's factor against the plain
@@ -16,7 +19,9 @@ The eigensolver slice: K3 (stage-2 bulge chasing) against its plain
 version on f32 and complex64 bands, ragged and sweep-chunked, on the bands
 the main path hands it (n = 8192 f32 and 4096 complex64), and on a band
 whose lanes outnumber the blocks co-resident on the card, beside planted
-faults (one chase's update skipped) and with bit-identical repeats;
+faults (one chase's update skipped) and with bit-identical repeats (the
+host-bound f64 references and planted faults of a case run in two worker
+processes beside the main one);
 then ``dlaf_tpu_torch.eigh`` at n = 8192 f32, band 128 (the ``heev``
 configuration of ``scripts/bench_sections.py``), timed whole and by stage
 (the staged run held bit-equal to the entry point's eigenvalues),
@@ -63,6 +68,7 @@ with code 1 before it prints any result.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import functools
 import io
@@ -98,12 +104,13 @@ from dlaf_tpu_torch.ops import leaf  # noqa: E402
 from dlaf_tpu_torch.ops.kernels import _build  # noqa: E402
 from dlaf_tpu_torch.ops.core import symmetrize_tri  # noqa: E402
 from dlaf_tpu_torch.ops.kernels.potrf import (  # noqa: E402
-    factor_deviation, potrf_tile, potrf_tile_ref)
+    NB_MAX, factor_deviation, potrf_tile, potrf_tile_plan, potrf_tile_ref)
 from dlaf_tpu_torch.ops.householder import householder_vector  # noqa: E402
 from dlaf_tpu_torch.ops.kernels.band2tridiag import (  # noqa: E402
     band_to_tridiag_strips_kernel, band_to_tridiag_strips_ref, chase_plan)
 from dlaf_tpu_torch.ops.kernels.trailing import (  # noqa: E402
-    ksub_matmul, ksub_matmul_masked, ksub_matmul_masked_ref, ksub_matmul_ref)
+    ksub_matmul, ksub_matmul_masked, ksub_matmul_masked_ref, ksub_matmul_plan, ksub_matmul_ref,
+    ksub_matmul_split_ref)
 from dlaf_tpu_torch.algos.eigensolver import bt as btm  # noqa: E402
 from dlaf_tpu_torch.ops.kernels.bt_apply import (  # noqa: E402
     bt_apply_fused, bt_apply_fused_ref, bt_apply_group, bt_apply_group_ref)
@@ -112,7 +119,9 @@ from dlaf_tpu_torch.types import eps  # noqa: E402
 DEV = torch.device("cuda", 0)
 N_MAIN, NB_MAIN = 32768, 512
 EPS32 = eps(torch.float32)
-K1_NBS = (64, 128, 256, 512)           # leaf sizes of the main path and the bench
+# leaf sizes of the main path and the bench; 1024 and NB_MAX (K1's largest)
+# keep the working tile in device memory
+K1_NBS = (64, 128, 256, 512, 1024, NB_MAX)
 # Factor checks, per entry (factor_deviation <= 1): |got - want| <= C eps32
 # (|want| + max off-diagonal |want|), plus half a bf16 ulp for bf16. On an
 # H100, sound f32 factors read at most 3.5 in units of eps32 (|want| + max
@@ -136,13 +145,18 @@ K2_CASES = [(512, 512, 512, True, 0), (512, 512, 16384, True, 0),
             (8192, 8192, 16384, False, 0), (1000, 777, 1234, True, 3),
             (1000, 777, 1234, False, 5), (300, 200, 5000, False, 2)]
 K2_TIMED = (8192, 8192, 16384)          # the largest trailing update at n = 32768
+# timed: the largest update, and a deep level's 512 x 512 block with the
+# longest k (the cluster split of k)
+K2_TIMES = [K2_TIMED, (512, 512, 16384)]
 GEMM_N = 16384
 MINIAPP_N = "8192"
 KERNELS = {}   # name -> the entry of the kernels line
 # the card's published peaks (NVIDIA H100 SXM data sheet, 700 W): f32 FFMA
-# rate outside the tensor cores and HBM bandwidth, for each kernel's bound
+# rate outside the tensor cores and HBM bandwidth, for each kernel's bound;
+# the TF32 tensor-core rate, which K2's three passes share
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
+PEAK_TF32 = 495e12
 # K3 cases on random bands: (n, b, dtype, sweep_lo, sweep_chunk); the main
 # path's band width, a narrow band, b > 128, a ragged n, and a
 # sweep-chunked record. Then K3 on the main path's own inputs (the bands
@@ -337,13 +351,16 @@ def _k1_case(a, nb, upper, dtype, view):
     require(float(other.abs().max()) == 0.0, f"{what}: other triangle zero")
     key = str(dtype).replace("torch.", "")
     emit("k1", nb=nb, upper=upper, dtype=key, lda=a.stride(0), max_abs_err=err,
-         deviation=dev, planted_fault_deviation=planted, bound=1.0)
+         deviation=dev, planted_fault_deviation=planted, bound=1.0,
+         plan=potrf_tile_plan(nb, bf16))
     return key, err, dev
 
 
 def phase_k1() -> None:
-    """K1 against its plain version: nb 64..512, upper and lower, f32 and
-    bf16, and nb = 512 views with the main path's leading dimension."""
+    """K1 against its plain version: nb 64..NB_MAX, upper and lower, f32 and
+    bf16, and nb = 512 views with the main path's leading dimension; each
+    case's launch plan (cluster blocks, shared memory a block, whether the
+    working tile is resident in the cluster)."""
     g = torch.Generator(device=DEV).manual_seed(1)
     worst = {}
     cases = [(_spd_tile(g, nb, dtype, upper), nb, upper, dtype, False)
@@ -383,17 +400,21 @@ def phase_k1() -> None:
     nb3 = NB_MAIN
     bound = {"operations": nb3**3 / 3 / PEAK_F32 * 1e3, "bytes": 2 * 4 * nb3**2 / PEAK_BYTES * 1e3}
     bound_by = max(bound, key=bound.get)
+    plan = potrf_tile_plan(NB_MAIN)
     emit("k1_nonspd", nb=nb, pivot=piv, nan_from_pivot=True)
     emit("k1_time", nb=NB_MAIN, dtype="float32", upper=True, ms=ms, plain_ms=plain_ms,
          library_ms=library_ms, bound_ms=bound[bound_by], bound_by=bound_by,
-         serial_column_steps=nb3)
+         serial_column_steps=nb3, slab_steps=nb3 // 32, cluster_blocks=plan["cluster_blocks"],
+         smem_bytes_per_block=plan["smem_bytes"], resident=bool(plan["resident"]),
+         clusters_fit=plan["clusters"])
     KERNELS["potrf_tile"] = dict(
         name="potrf_tile", route="cuda", source="dlaf_tpu_torch/csrc/potrf_tile.cu",
         replaces="dlaf_tpu/ops/pallas/potrf.py:130", max_abs_err=worst["float32"][1],
         deviation=worst["float32"][0], max_abs_err_bf16=worst["bfloat16"][1],
         deviation_bf16=worst["bfloat16"][0], bound=K1_BOUND, ms=ms, plain_ms=plain_ms,
         bound_ms=bound[bound_by], bound_by=bound_by, library_ms=library_ms,
-        timed_shape=[NB_MAIN, NB_MAIN])
+        timed_shape=[NB_MAIN, NB_MAIN], cluster_blocks=plan["cluster_blocks"],
+        smem_bytes_per_block=plan["smem_bytes"])
 
 
 def _strided(g, rows, cols, pad):
@@ -404,7 +425,10 @@ def _strided(g, rows, cols, pad):
 
 def phase_k2() -> None:
     """K2 against its plain version computed in f64: main-path shapes, both
-    layouts, and a ragged shape of row-strided, unaligned views."""
+    layouts, and ragged shapes of row-strided views that are not 16-byte
+    aligned (K2's 4-byte copy path); each case beside two planted faults,
+    K2's split cut to one TF32 term and to two (emulated on the card), which
+    the bound must reject."""
     g = torch.Generator(device=DEV).manual_seed(2)
     worst = (0.0, 0.0)
     for m, n, k, kmaj, pad in K2_CASES:
@@ -414,17 +438,22 @@ def phase_k2() -> None:
         want = ksub_matmul_ref(c.double(), x.double(), y.double(), kmaj)
         out = _strided(g, m, n, pad)
         out.copy_(c)
+        plan = ksub_matmul_plan(out, x, y, kmaj)
         got = ksub_matmul(out, x, y, x_k_major=kmaj)
         plain = ksub_matmul_ref(c, x, y, kmaj)
         # one f32 accumulator per output walks all k terms: its rounding
         # error grows like eps k max|x| max|y| (measured: 0.8 of that at
-        # k = 16384); TF32's 10-bit products land far above 2x that, and
-        # the TF32 error is measured below on the largest shape to show it
+        # k = 16384); one or two TF32 terms land far above 2x that
         bound = EPS32 * (2 * k * float(x.abs().max()) * float(y.abs().max())
                          + float(c.abs().max()))
         err = float((got.double() - want).abs().max())
         plain_err = float((plain.double() - want).abs().max())
+        planted = {f"planted_{t}_term_err": float(
+            (ksub_matmul_split_ref(c, x, y, kmaj, terms=t).double() - want).abs().max())
+            for t in (1, 2)}
         require(err <= bound, f"K2 {(m, n, k, kmaj)}: {err} > {bound}")
+        require(min(planted.values()) > bound,
+                f"K2 {(m, n, k, kmaj)}: the bound passes a planted fault ({planted})")
         worst = max(worst, (err, bound))
         extra = {}
         if (m, n, k) == K2_TIMED:
@@ -434,25 +463,37 @@ def phase_k2() -> None:
             extra["tf32_err"] = float((tf32.double() - want).abs().max())
             del tf32
         emit("k2", m=m, n=n, k=k, x_k_major=kmaj, ld_pad=pad, max_abs_err=err,
-             plain_f32_err=plain_err, bound=bound, **extra)
+             plain_f32_err=plain_err, bound=bound, plan=plan, **planted, **extra)
         del c, x, y, want, out, got, plain
-    m, n, k = K2_TIMED
-    c, x, y = (gen.random_general(g, s, torch.float32) for s in ((m, n), (k, m), (k, n)))
-    ms = cuda_ms(lambda: ksub_matmul(c, x, y), 5)
-    plain_ms = cuda_ms(lambda: ksub_matmul_ref(c, x, y), 5)
-    library_ms = cuda_ms(lambda: torch.addmm(c, x.T, y, alpha=-1), 5)
-    # 2mnk f32 FFMA flops; C read and written once, X and Y read once
-    bound = {"operations": 2 * m * n * k / PEAK_F32 * 1e3,
-             "bytes": 4 * (2 * m * n + k * m + k * n) / PEAK_BYTES * 1e3}
-    bound_by = max(bound, key=bound.get)
-    emit("k2_time", m=m, n=n, k=k, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-         bound_ms=bound[bound_by], bound_by=bound_by,
-         tflops=2 * m * n * k / ms / 1e9, plain_tflops=2 * m * n * k / plain_ms / 1e9)
-    KERNELS["ksub_matmul"] = dict(
-        name="ksub_matmul", route="cuda", source="dlaf_tpu_torch/csrc/ksub.cu",
-        replaces="dlaf_tpu/ops/pallas/trailing.py:109", max_abs_err=worst[0],
-        bound=worst[1], ms=ms, plain_ms=plain_ms, bound_ms=bound[bound_by],
-        bound_by=bound_by, library_ms=library_ms, timed_shape=[m, n, k])
+    for m, n, k in K2_TIMES:
+        c, x, y = (gen.random_general(g, s, torch.float32) for s in ((m, n), (k, m), (k, n)))
+        reps = 5 if m * n * k > 2**36 else 50
+        ms = cuda_ms(lambda: ksub_matmul(c, x, y), reps)
+        plain_ms = cuda_ms(lambda: ksub_matmul_ref(c, x, y), reps)
+        library_ms = cuda_ms(lambda: torch.addmm(c, x.T, y, alpha=-1), reps)
+        # the operations K2 runs: three TF32 passes, 6mnk on the tensor
+        # cores; C read and written once, X and Y read once. The f32 FFMA
+        # bound of the same 2mnk product (K6's route) is kept beside it.
+        bound = {"operations": 6 * m * n * k / PEAK_TF32 * 1e3,
+                 "bytes": 4 * (2 * m * n + k * m + k * n) / PEAK_BYTES * 1e3}
+        bound_by = max(bound, key=bound.get)
+        ffma_ms = max(2 * m * n * k / PEAK_F32 * 1e3, bound["bytes"])
+        tflops = 2 * m * n * k / ms / 1e9
+        emit("k2_time", m=m, n=n, k=k, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+             bound_ms=bound[bound_by], bound_by=bound_by, bound_tf32x3_ms=bound[bound_by],
+             bound_f32_ffma_ms=ffma_ms, tflops=tflops, of_f32_peak=tflops * 1e12 / PEAK_F32,
+             tensor_tflops=3 * tflops, of_tf32_peak=3 * tflops * 1e12 / PEAK_TF32,
+             plain_tflops=2 * m * n * k / plain_ms / 1e9,
+             library_tflops=2 * m * n * k / library_ms / 1e9, plan=ksub_matmul_plan(c, x, y))
+        if (m, n, k) == K2_TIMED:
+            KERNELS["ksub_matmul"] = dict(
+                name="ksub_matmul", route="cuda", source="dlaf_tpu_torch/csrc/ksub_tf32x3.cu",
+                replaces="dlaf_tpu/ops/pallas/trailing.py:109", max_abs_err=worst[0],
+                bound=worst[1], ms=ms, plain_ms=plain_ms, bound_ms=bound[bound_by],
+                bound_by=bound_by, bound_tf32x3_ms=bound[bound_by], bound_f32_ffma_ms=ffma_ms,
+                library_ms=library_ms,
+                timed_shape=[m, n, k])
+        del c, x, y
 
 
 def _wide(dtype):
@@ -510,6 +551,33 @@ def _planted_reflector(step: int):
         yield
     finally:
         b2t.householder_vector = householder_vector
+
+
+_K3_POOL = None   # phase_k3's worker processes for the plain references
+
+
+def _np(t):
+    return None if t is None else t.cpu().numpy()
+
+
+def _k3_reference(kind, strips, band, n, b, arg=None):
+    """One K3 plain reference, computed on the card by a worker process of
+    phase_k3: "plain" (``_k3_plain``), "planted_pipelined" (the pipelined
+    chase with lane 0's reflector at wavefront step ``arg`` lost) or
+    "planted_strips" (the plain chase with chase ``arg`` skipped). The
+    references are host-bound loops of small launches, and one process
+    drives one such loop at a time. Inputs and outputs cross the process
+    boundary as numpy arrays (pickled through the pipe)."""
+    strips = None if strips is None else torch.from_numpy(strips).to(DEV)
+    band = None if band is None else torch.from_numpy(band).to(DEV)
+    if kind == "plain":
+        out = _k3_plain(strips, band, n, b)
+    elif kind == "planted_pipelined":
+        with _planted_reflector(arg):
+            out = band_to_tridiag_pipelined(band, b)
+    else:
+        out = _planted_chase(strips, n, b, arg)
+    return tuple(_np(x) for x in out)
 
 
 def _k3_de_distance(got, want) -> float:
@@ -582,20 +650,40 @@ def _k3_bound_ms(n, b, dtype) -> tuple[float, str, dict]:
 
 def _k3_case(what, strips, band64, n, b, amax, plant=None) -> dict:
     """K3 on ``strips`` against its plain version (the checks described above K3_REL)
-    and a bit-identical repeat. ``plant``, where given, makes a planted
-    fault (d, e, vs, taus) that the eig check must reject; the res check is
-    shown K3's own record with one tau lost. Emits its readings before it
-    checks them."""
+    and a bit-identical repeat. ``plant``, where given, is the
+    ``_k3_reference`` arguments of a planted fault (d, e, vs, taus) that
+    the eig check must reject; the res check is shown K3's own record with
+    one tau lost. The plain version in f64 and the planted fault run in
+    phase_k3's two worker processes while this one runs the plain version
+    in f32 (timed: ``plain_ms``). Emits its readings before it checks
+    them."""
     t0 = time.perf_counter()
+    parts, last = {}, [t0]
+
+    def lap(name):   # host seconds of each part of the case, for the budget
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        parts[name] = parts.get(name, 0.0) + now - last[0]
+        last[0] = now
+
     dtype = strips.dtype
     got = band_to_tridiag_strips_kernel(strips, n, b)
+    lap("kernel")
+    fut64 = _K3_POOL.submit(_k3_reference, "plain", _np(strips.to(band64.dtype)), _np(band64), n, b)
+    fut_bad = None
+    if plant is not None:
+        kind, pstrips, pband, *rest = plant
+        fut_bad = _K3_POOL.submit(_k3_reference, kind, _np(pstrips), _np(pband), *rest)
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     want = _k3_plain(strips, band64.to(dtype), n, b)
     stop.record()
-    torch.cuda.synchronize()
-    want64 = _k3_plain(strips.to(band64.dtype), band64, n, b)
+    lap("plain")
+    want64 = tuple(torch.from_numpy(x).to(DEV) for x in fut64.result())
+    bad = tuple(torch.from_numpy(x).to(DEV) for x in fut_bad.result()) if fut_bad is not None else None
+    lap("wait_workers")
     ew = torch.linalg.eigvalsh(band64)
+    lap("eigvalsh_band")
     bnorm = float(ew.abs().max())
     floor = n * EPS32 * max(1.0, amax)
     inherent = _k3_de_distance(want, want64)
@@ -605,21 +693,26 @@ def _k3_case(what, strips, band64, n, b, amax, plant=None) -> dict:
          "plain_f32_vs_f64": inherent, "plain_f32_vs_f64_floors": inherent / floor}
     r["rel"] = _k3_de_distance(got, want64) / denom
     r["eig"], r["eig_plain"] = _k3_eig(got, ew), _k3_eig(want, ew)
+    lap("eig")
     r["res"], r["res_plain"] = _k3_res(got, band64, n, b, bnorm), _k3_res(want, band64, n, b, bnorm)
+    lap("res")
     r["eig_bound"], r["res_bound"] = K3_EIG * max(1.0, r["eig_plain"]), K3_RES * max(1.0, r["res_plain"])
     r["finite"] = all(bool(torch.isfinite(x).all()) for x in got)
     again = band_to_tridiag_strips_kernel(strips, n, b)
     r["bit_identical"] = all(torch.equal(x, y) for x, y in zip(got, again))
     del again
+    lap("repeat")
     if plant is not None:
-        bad = plant()
         r["planted_fault_rel"] = _k3_de_distance(bad, want64) / denom
         r["planted_fault_eig"] = _k3_eig(bad, ew)
         del bad
+        lap("eig")
         taus = got[3].clone()
         taus[n // 2, 1] = 0                        # one recorded reflector lost
         r["planted_fault_res"] = _k3_res((*got[:3], taus), band64, n, b, bnorm)
+        lap("res")
     r["seconds"] = time.perf_counter() - t0
+    r["part_seconds"] = parts
     emit("k3", n=n, b=b, dtype=str(dtype).replace("torch.", ""),
          bounds={"rel": K3_REL, "rel_cap": K3_REL_CAP}, **r)
     require(r["finite"], f"{what}: finite")
@@ -636,7 +729,19 @@ def phase_k3() -> None:
     """K3 against its plain version on the card, planted faults beside the
     checks, bit-identical repeats: random bands, the main path's own bands
     (K3 timed on the n = 8192 f32 one), and a band whose lanes outnumber
-    the co-resident blocks."""
+    the co-resident blocks. The f64 references and the planted faults run
+    in two worker processes, stopped at the end."""
+    global _K3_POOL
+    _K3_POOL = concurrent.futures.ProcessPoolExecutor(
+        2, mp_context=torch.multiprocessing.get_context("spawn"))
+    try:
+        _phase_k3()
+    finally:
+        _K3_POOL.shutdown(wait=True, cancel_futures=True)
+        _K3_POOL = None
+
+
+def _phase_k3() -> None:
     g = torch.Generator(device=DEV).manual_seed(7)
     worst = {"err": 0.0, "rel": 0.0, "eig": 0.0, "res": 0.0}
     plain_ms = None
@@ -661,7 +766,7 @@ def phase_k3() -> None:
             continue
         plant = None
         if (n, b, dtype) == (*K3_PLANTED, torch.float32):
-            plant = lambda: _planted_chase(strips, n, b, (n // 2, 1))  # noqa: E731
+            plant = ("planted_strips", strips, None, n, b, (n // 2, 1))
         r = _k3_case(what, strips, band64, n, b, amax, plant)
         if (n, b, dtype) == (*K3_PLAIN_TIMED, torch.float32):
             plain_ms = r["plain_ms"]
@@ -671,12 +776,13 @@ def phase_k3() -> None:
     # update of chase (n/2, 0), in the pipelined chase's step 4 (n/2)
     b = B_EIGH
     for n, dtype in K3_MAIN:
+        t0 = time.perf_counter()
         strips, band64, amax = _k3_main_band(dtype)
+        emit("k3_main_band", n=n, b=b, dtype=str(dtype).replace("torch.", ""),
+             seconds=time.perf_counter() - t0)
         plant = None
         if dtype == torch.float32:
-            def plant():
-                with _planted_reflector(4 * (n // 2)):
-                    return band_to_tridiag_pipelined(band64.to(dtype), b)
+            plant = ("planted_pipelined", None, band64.to(dtype), n, b, 4 * (n // 2))
             ms = cuda_ms(lambda: band_to_tridiag_strips_kernel(strips, n, b), 3)
         r = _k3_case(f"K3 main-path band n={n} b={b} {dtype}", strips, band64, n, b, amax, plant)
         if dtype == torch.float32:
@@ -1371,14 +1477,17 @@ def phase_main() -> None:
     secs = {"kernel": [], "torch": []}
     res, res_k, dev = {}, {}, {}
     plain = None
+    per_run = set()
     potrf_tile.launches = ksub_matmul.launches = 0
     for i, route in enumerate(["kernel", "torch", "torch", "kernel", "kernel", "torch"]):
         _set_route(route)
         before = (potrf_tile.launches, ksub_matmul.launches)
         t, f = _timed_potrf(a)
+        after = (potrf_tile.launches, ksub_matmul.launches)
         if route == "torch":
-            require((potrf_tile.launches, ksub_matmul.launches) == before,
-                    "the plain route launched a kernel")
+            require(after == before, "the plain route launched a kernel")
+        else:
+            per_run.add((after[0] - before[0], after[1] - before[1]))
         if i >= 2:   # runs 0 and 1 are the warm-ups of each route
             secs[route].append(t)
         if route not in res and i >= 2:
@@ -1397,6 +1506,8 @@ def phase_main() -> None:
     launches = {"potrf_tile": potrf_tile.launches, "ksub_matmul": ksub_matmul.launches}
     require(launches["potrf_tile"] > 0 and launches["ksub_matmul"] > 0,
             f"main path launched every kernel: {launches}")
+    require(len(per_run) == 1, f"every kernel-route POTRF launches the same: {per_run}")
+    k1_run, k2_run = per_run.pop()
     for k, v in launches.items():
         KERNELS[k]["launches"] = v
     _set_route("torch")
@@ -1420,7 +1531,8 @@ def phase_main() -> None:
          residual=res, residual_bound=bound, residual_eps_max_a=res_k,
          residual_eps_max_a_bound=RES_K, factor_deviation=dev,
          factor_bound=f"|U_kernel-U_torch| <= {ROUTE_C} eps32 (|U_torch| + max offdiag)",
-         launches=launches, gemm_f32_n=ng, gemm_f32_tflops=2 * ng**3 / gemm_ms / 1e9,
+         launches=launches, launches_per_run={"potrf_tile": k1_run, "ksub_matmul": k2_run},
+         gemm_f32_n=ng, gemm_f32_tflops=2 * ng**3 / gemm_ms / 1e9,
          allow_tf32=torch.backends.cuda.matmul.allow_tf32)
 
 

@@ -61,7 +61,7 @@ def _rank_main(tasks, rank, grid_size, order, backend, device, port, timeout, re
         results.put((rank, False, traceback.format_exc()))
 
 
-def spawn_grid(fn, grid_size, backend: str = "gloo", device: str = "cpu",
+def spawn_grid(fn, grid_size, backend: str = "gloo", device: str = "cuda",
                order: str = "R", timeout: float = 900.0) -> list:
     """``fn(grid, device)`` on each of the P·Q ranks of a new process grid;
     returns the results in rank order. Raises if a rank raises, exits

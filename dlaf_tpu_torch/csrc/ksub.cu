@@ -1,27 +1,29 @@
-// K2 and K6: fused trailing update C <- C - op(X) Y on Hopper (sm_90a), f32.
+// K6: masked fused trailing update C <- C - op(X) Y on Hopper (sm_90a), f32.
 //
 // Replaces the Pallas TPU kernel dlaf_tpu/ops/pallas/trailing.py
-// ksub_matmul (_ksub_kernel). As there, the product and the subtract share
-// one accumulator and the product never reaches device memory; C is read
-// once and written once, in place.
+// ksub_matmul_masked (_ksub_kernel_masked): the distributed POTRF's
+// trailing updates, C - op(X) Y only where grow[i] >= gcol[j] (int32 global
+// row and column indices; a sentinel column index above every row index,
+// or both vectors negated for the upper mask i <= j, are plain compares).
+// As there, the product and the subtract share one accumulator and the
+// product never reaches device memory; C is read once and written once, in
+// place. This tile was K2's first design too (the same kernel without the
+// mask); K2 now runs on the tensor cores (ksub_tf32x3.cu).
 //
-// What bounds it: at the main-path shapes (up to m = n = 8192, k = 16384)
-// this is a large f32 GEMM, bound by the SMs' f32 FFMA rate (67 TFLOP/s on
-// an H100 SXM at 700 W). Accuracy must match the JAX package's HIGHEST
-// route, so the products are plain f32 FFMA: no TF32 anywhere. The deep
-// levels of the POTRF recursion ask for small m x n (512 x 512, 16 output
-// tiles) with large k (up to 16384), which alone would leave most SMs idle.
+// What bounds it: at n = 32768 on one card the heaviest call is m = 30720,
+// n = 1536, k = 2048: a large f32 GEMM, bound by the SMs' f32 FFMA rate (67
+// TFLOP/s on an H100 SXM at 700 W). The products are plain f32 FFMA.
 //
 // Design: a 128 x 128 output tile per block of 256 threads, each thread
 // an 8 x 8 register tile (rows ty*4 + {0..3, 64..67}, columns tx*4 +
 // {0..3, 64..67}, so shared-memory reads are float4 and conflict-free).
 // K advances 8 at a time through two shared-memory buffers: the next
 // step's tiles are loaded into registers while the current step computes.
-// X arrives K-major (k, m) on the upper-POTRF path or (m, k) (NN); both
-// are stored K-major in shared memory (row stride 132 keeps the transposing
-// store of the NN layout free of bank conflicts). Every operand takes a
-// leading dimension, so row-strided views into the factored matrix go in
-// without copies, and the kernel masks the ragged edges of m, n and k.
+// X arrives K-major (k, m) or (m, k) (NN); both are stored K-major in
+// shared memory (row stride 132 keeps the transposing store of the NN
+// layout free of bank conflicts). Every operand takes a leading dimension,
+// so row-strided views into the factored matrix go in without copies, and
+// the kernel masks the ragged edges of m, n and k.
 //
 // Small grids: when there are fewer output tiles than SMs, a thread block
 // cluster of S <= 8 blocks shares each output tile and splits k S ways
@@ -32,18 +34,11 @@
 // (deterministic), and subtracts the sum from C. The partial products stay
 // on chip, and C is still read once and written once.
 //
-// K6, the masked instantiation (kMasked), replaces the Pallas TPU kernel
-// dlaf_tpu/ops/pallas/trailing.py ksub_matmul_masked (_ksub_kernel_masked):
-// the distributed POTRF's trailing updates, C - op(X) Y only where
-// grow[i] >= gcol[j] (int32 global row and column indices; a sentinel
-// column index above every row index, or both vectors negated for the
-// upper mask i <= j, are plain compares). Same bound as K2 (at n = 32768 on
-// one card the heaviest call is m = 30720, n = 1536, k = 2048: f32 FFMA
-// bound) and the same design, plus: each block first loads its tile's slice of grow and gcol into shared
-// memory and reduces max(grow) and min(gcol). A dead tile (max < min: wholly
-// above the diagonal) returns at once, so C is neither read nor written
-// there and the staircase's conservative chunks cost only their live
-// tiles. A live tile accumulates as K2 does and subtracts in the epilogue
+// The mask: each block first loads its tile's slice of grow and gcol into
+// shared memory and reduces max(grow) and min(gcol). A dead tile (max <
+// min: wholly above the diagonal) returns at once, so C is neither read
+// nor written there and the staircase's conservative chunks cost only
+// their live tiles. A live tile accumulates and subtracts in the epilogue
 // only where the mask holds; entries outside it are not written.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -94,7 +89,7 @@ __device__ __forceinline__ void sub4_masked(float* c, long long ldc, bool vec, i
 }
 
 // two blocks per SM (<= 128 registers a thread) is what hides the latency
-template <bool kSplit, bool kMasked>
+template <bool kSplit>
 __global__ void __launch_bounds__(kThreads, 2)
 ksub_kernel(float* __restrict__ c, long long ldc, const float* __restrict__ x,
             long long ldx, const float* __restrict__ y, long long ldy,
@@ -103,11 +98,11 @@ ksub_kernel(float* __restrict__ c, long long ldc, const float* __restrict__ x,
   __shared__ __align__(16) float As[2][BK][kAStride];
   __shared__ __align__(16) float Bs[2][BK][BN];
   extern __shared__ __align__(16) float part[];   // [BM][BN], split > 1 only
-  // K6 only: the tile's row and column indices, and per-warp max/min
-  __shared__ int sgr[kMasked ? BM : 1], sgc[kMasked ? BN : 1], sred[kMasked ? kThreads / 32 : 1];
+  // the tile's row and column indices, and per-warp max/min
+  __shared__ int sgr[BM], sgc[BN], sred[kThreads / 32];
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  if constexpr (kMasked) {
+  {
     // threads 0..127 load row indices, 128..255 column indices; rows past m
     // and columns past n can never be updated
     int v;
@@ -200,11 +195,8 @@ ksub_kernel(float* __restrict__ c, long long ldc, const float* __restrict__ x,
       for (int h = 0; h < 2; ++h) {
         const float4 v =
             make_float4(acc[i][h * 4], acc[i][h * 4 + 1], acc[i][h * 4 + 2], acc[i][h * 4 + 3]);
-        if constexpr (kMasked)
-          sub4_masked(c, ldc, vec, gm, n0 + tx * 4 + h * 64, n, v,
-                      sgr[gm - m0], &sgc[tx * 4 + h * 64]);
-        else
-          sub4(c, ldc, vec, gm, n0 + tx * 4 + h * 64, n, v);
+        sub4_masked(c, ldc, vec, gm, n0 + tx * 4 + h * 64, n, v, sgr[gm - m0],
+                    &sgc[tx * 4 + h * 64]);
       }
     }
     return;
@@ -231,10 +223,7 @@ ksub_kernel(float* __restrict__ c, long long ldc, const float* __restrict__ x,
       v.x += p.x; v.y += p.y; v.z += p.z; v.w += p.w;
     }
     if (m0 + r >= m) continue;
-    if constexpr (kMasked)
-      sub4_masked(c, ldc, vec, m0 + r, n0 + cc, n, v, sgr[r], &sgc[cc]);
-    else
-      sub4(c, ldc, vec, m0 + r, n0 + cc, n, v);
+    sub4_masked(c, ldc, vec, m0 + r, n0 + cc, n, v, sgr[r], &sgc[cc]);
   }
   cluster.sync();                          // keep each partial alive until read
 }
@@ -249,8 +238,6 @@ int num_sms() {
   return sms;
 }
 
-// K2 (grow == gcol == nullptr) and K6 share the launch plan
-template <bool kMasked>
 int launch(void* c, long long ldc, const void* x, long long ldx, const void* y, long long ldy,
            const int* grow, const int* gcol, int m, int n, int k, int x_k_major, void* stream) {
   if (m <= 0 || n <= 0 || k <= 0) return (int)cudaErrorInvalidValue;
@@ -264,7 +251,7 @@ int launch(void* c, long long ldc, const void* x, long long ldx, const void* y, 
     split *= 2;
   const int kchunk = ((k + split - 1) / split + BK - 1) / BK * BK;
   static const cudaError_t attr_err = cudaFuncSetAttribute(
-      ksub_kernel<true, kMasked>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSplitSmem);
+      ksub_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSplitSmem);
   if (attr_err != cudaSuccess) return (int)attr_err;
 
   cudaLaunchConfig_t cfg = {};
@@ -279,7 +266,7 @@ int launch(void* c, long long ldc, const void* x, long long ldx, const void* y, 
   attr[0].val.clusterDim.z = split;
   cfg.attrs = attr;
   cfg.numAttrs = split > 1 ? 1 : 0;
-  auto kernel = split > 1 ? ksub_kernel<true, kMasked> : ksub_kernel<false, kMasked>;
+  auto kernel = split > 1 ? ksub_kernel<true> : ksub_kernel<false>;
   cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, static_cast<float*>(c), ldc,
                                      static_cast<const float*>(x), ldx,
                                      static_cast<const float*>(y), ldy, m, n, k, x_k_major,
@@ -290,19 +277,13 @@ int launch(void* c, long long ldc, const void* x, long long ldx, const void* y, 
 
 }  // namespace
 
-extern "C" int dlaf_ksub(void* c, long long ldc, const void* x, long long ldx,
-                         const void* y, long long ldy, int m, int n, int k,
-                         int x_k_major, void* stream) {
-  return launch<false>(c, ldc, x, ldx, y, ldy, nullptr, nullptr, m, n, k, x_k_major, stream);
-}
-
 // K6: grow (m) and gcol (n) are contiguous int32 vectors
 extern "C" int dlaf_ksub_masked(void* c, long long ldc, const void* x, long long ldx,
                                 const void* y, long long ldy, const void* grow,
                                 const void* gcol, int m, int n, int k, int x_k_major,
                                 void* stream) {
-  return launch<true>(c, ldc, x, ldx, y, ldy, static_cast<const int*>(grow),
-                      static_cast<const int*>(gcol), m, n, k, x_k_major, stream);
+  return launch(c, ldc, x, ldx, y, ldy, static_cast<const int*>(grow),
+                static_cast<const int*>(gcol), m, n, k, x_k_major, stream);
 }
 
 extern "C" const char* dlaf_cuda_error_string(int e) {

@@ -4,11 +4,13 @@ PyTorch counterpart of :mod:`dlaf_tpu.ops.core`: dtype-generic matmul and
 masking helpers on whole tensors. The MXU/SM-critical leaves live in
 :mod:`dlaf_tpu_torch.ops.leaf` and :mod:`dlaf_tpu_torch.ops.kernels`.
 
-Precision: f32 products run in full f32, never TF32. The JAX package pins
-``Precision.HIGHEST`` for f32 (``dlaf_tpu/ops/core.py`` ``_PRECISIONS``);
-here both TF32 switches are turned off when this module is imported, so
-every ``torch.matmul`` of the port (and cuDNN, which the port does not
-call) keeps f32 accuracy.
+Precision: f32 products keep f32 accuracy, never one TF32 pass. The JAX
+package pins ``Precision.HIGHEST`` for f32 (``dlaf_tpu/ops/core.py``
+``_PRECISIONS``); here both TF32 switches are turned off when this module
+is imported, so every ``torch.matmul`` of the port (and cuDNN, which the
+port does not call) runs in full f32. K2 (``kernels/trailing.py``) runs on
+the tensor cores in a three-pass TF32 split, which holds f32's error
+bound.
 """
 from __future__ import annotations
 

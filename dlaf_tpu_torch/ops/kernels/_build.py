@@ -36,10 +36,16 @@ SIGNATURES = {
     "potrf_tile": {
         # a, lda, out, ldo, work, nb, upper, bf16, stream
         "dlaf_potrf_tile": [_P, _LL, _P, _LL, _P, _I, _I, _I, _P],
+        # nb, bf16, out (int[4]: resident, smem bytes, cluster blocks, clusters)
+        "dlaf_potrf_tile_plan": [_I, _I, _P],
+    },
+    "ksub_tf32x3": {
+        # c, ldc, x, ldx, y, ldy, m, n, k, x_k_major, stream
+        "dlaf_ksub_tf32x3": [_P, _LL, _P, _LL, _P, _LL, _I, _I, _I, _I, _P],
+        # x, ldx, y, ldy, m, n, k, out (int[2]: 16-byte copies, k split)
+        "dlaf_ksub_tf32x3_plan": [_P, _LL, _P, _LL, _I, _I, _I, _P],
     },
     "ksub": {
-        # c, ldc, x, ldx, y, ldy, m, n, k, x_k_major, stream
-        "dlaf_ksub": [_P, _LL, _P, _LL, _P, _LL, _I, _I, _I, _I, _P],
         # c, ldc, x, ldx, y, ldy, grow, gcol, m, n, k, x_k_major, stream
         "dlaf_ksub_masked": [_P, _LL, _P, _LL, _P, _LL, _P, _P, _I, _I, _I, _I, _P],
     },

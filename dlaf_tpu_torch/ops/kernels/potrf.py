@@ -2,8 +2,16 @@
 
 Replaces the Pallas kernel ``dlaf_tpu/ops/pallas/potrf.py`` ``potrf_tile``
 (``_potrf_u_kernel``, ``_potrf_u_kernel_blk``). The CUDA source is
-``dlaf_tpu_torch/csrc/potrf_tile.cu``; its header says what bounds it on
-the card and how the design answers.
+``dlaf_tpu_torch/csrc/potrf_tile.cu``: one launch of a thread-block cluster
+of 8 blocks that holds the f32 working tile in its distributed shared
+memory up to nb = 536 (in device memory beyond, the same kernel); its
+header says what bounds it on the card and how the design answers.
+
+On the POTRF path the leaf's dtype decides the route (``ops/leaf.py``):
+f32 leaves reach this kernel. Its bf16 instantiation is reached only by
+calling :func:`potrf_tile` directly: ``potrf`` on a bf16 CUDA matrix stops
+in ``tri_inv`` (``ops/householder.py``), because
+``torch.linalg.solve_triangular`` has no bf16 kernel on the card.
 
 :func:`potrf_tile` dispatches on the tensor's device: a CPU tensor takes the
 plain PyTorch version :func:`potrf_tile_ref`; a CUDA tensor launches the
@@ -11,6 +19,7 @@ kernel or raises. There is no fallback from one to the other.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -19,6 +28,30 @@ from ..core import ct, symmetrize_tri, tril_mask
 from . import _build
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+# the largest nb: a 32-row slab copy of the tile in one block's shared
+# memory (232,448 bytes a block on an H100)
+NB_MAX = 1808
+_plans: dict = {}
+
+
+def potrf_tile_plan(nb: int, bf16: bool = False) -> dict:
+    """How K1 runs an nb tile on the current card: ``resident`` (the working
+    tile in the cluster's shared memory, else in a device-memory buffer),
+    ``smem_bytes`` a block, ``cluster_blocks``, and ``clusters``, how many
+    such clusters the card can hold at once. Raises where the cluster
+    cannot be placed. Queried once per (nb, dtype)."""
+    key = (nb, bool(bf16))
+    if key not in _plans:
+        lib = _build.library("potrf_tile")
+        out = (ctypes.c_int * 4)()
+        _build.check(lib.dlaf_potrf_tile_plan(nb, int(bf16), out), lib, "potrf_tile plan")
+        plan = dict(zip(("resident", "smem_bytes", "cluster_blocks", "clusters"), out))
+        if plan["clusters"] < 1:
+            raise RuntimeError(f"potrf_tile: a cluster of {plan['cluster_blocks']} blocks with "
+                               f"{plan['smem_bytes']} bytes of shared memory each cannot be "
+                               "placed on this card")
+        _plans[key] = plan
+    return _plans[key]
 
 
 def potrf_tile_ref(a: torch.Tensor, upper: bool = False) -> torch.Tensor:
@@ -45,8 +78,8 @@ def potrf_tile(a: torch.Tensor, upper: bool = False) -> torch.Tensor:
     ``upper=False``: L (A = L L^T) from a's lower triangle; ``upper=True``:
     U (A = U^T U) from a's upper triangle. A non-positive pivot gives NaN
     that propagates to the rest of the factor (no trap, no early exit).
-    An nb whose 32-row slab does not fit in one block's shared memory
-    (nb > 1808 on an H100) makes the launch fail, and the wrapper raises.
+    The kernel takes nb % 8 == 0 up to ``NB_MAX`` = 1808 (its 32-row slab
+    copy fills one block's shared memory on an H100); a larger nb raises.
     """
     if not _build.on_cuda(a):
         return potrf_tile_ref(a, upper)
@@ -57,15 +90,20 @@ def potrf_tile(a: torch.Tensor, upper: bool = False) -> torch.Tensor:
     nb = a.shape[0]
     if nb == 0 or nb % 8:
         raise ValueError(f"potrf_tile needs nb % 8 == 0, got nb={nb}")
+    if nb > NB_MAX:
+        raise ValueError(f"potrf_tile takes nb <= {NB_MAX}, got nb={nb}")
     if a.stride(1) != 1:
         raise ValueError("potrf_tile needs unit column stride")
-    out = torch.empty((nb, nb), dtype=a.dtype, device=a.device)
-    work = torch.empty((nb, nb), dtype=torch.float32, device=a.device)
+    bf16 = a.dtype == torch.bfloat16
     lib = _build.library("potrf_tile")
     with torch.cuda.device(a.device):
+        plan = potrf_tile_plan(nb, bf16)
+        out = torch.empty((nb, nb), dtype=a.dtype, device=a.device)
+        work = None if plan["resident"] else torch.empty((nb, nb), dtype=torch.float32,
+                                                         device=a.device)
         rc = lib.dlaf_potrf_tile(a.data_ptr(), a.stride(0), out.data_ptr(), nb,
-                                 work.data_ptr(), nb, int(upper),
-                                 int(a.dtype == torch.bfloat16), _build.stream_of(a))
+                                 None if work is None else work.data_ptr(), nb, int(upper),
+                                 int(bf16), _build.stream_of(a))
     _build.check(rc, lib, "potrf_tile")
     potrf_tile.launches += 1
     return out

@@ -4,18 +4,25 @@ K2 replaces the Pallas kernel ``dlaf_tpu/ops/pallas/trailing.py``
 ``ksub_matmul`` (``_ksub_kernel``); K6 replaces ``ksub_matmul_masked``
 (``_ksub_kernel_masked``), the same update restricted to the entries whose
 global row index is at least their global column index (the distributed
-POTRF's trailing updates). Both are ``dlaf_tpu_torch/csrc/ksub.cu``: the
-product and the subtract share one register accumulator, so the product
-never reaches device memory, and C is read once and written once, in
-place. K6 skips the tiles its mask leaves wholly untouched. Products are
-plain f32 FFMA (never TF32), the accuracy of the JAX package's ``HIGHEST``
-route.
+POTRF's trailing updates). In both the product and the subtract share one
+register accumulator, so the product never reaches device memory, and C is
+read once and written once, in place.
+
+K2 is ``dlaf_tpu_torch/csrc/ksub_tf32x3.cu``: the products run on the
+tensor cores in three TF32 passes (hi*hi + lo*hi + hi*lo of a two-term TF32
+split of each f32 operand, the TPU kernel's bf16_3x scheme in TF32), which
+holds f32's error bound; a single TF32 pass would not. K6 is
+``dlaf_tpu_torch/csrc/ksub.cu``: plain f32 FFMA, skipping the tiles its
+mask leaves wholly untouched.
 
 :func:`ksub_matmul` and :func:`ksub_matmul_masked` dispatch on the tensor's
 device: a CPU tensor takes the plain version; a CUDA tensor launches the
-kernel or raises.
+kernel or raises. :func:`ksub_matmul_split_ref` emulates K2's split in
+plain PyTorch, for the checks; no route runs it.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -29,6 +36,33 @@ def _op(x: torch.Tensor, x_k_major: bool) -> torch.Tensor:
 def ksub_matmul_ref(c, x, y, x_k_major: bool = True) -> torch.Tensor:
     """Plain version: ``c - op(x) @ y`` as a new tensor."""
     return c - _op(x, x_k_major) @ y
+
+
+def tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32 (10 explicit mantissa bits), to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32`` rounds: on the int32 view,
+    (bits + 0x1000) & ~0x1FFF."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def ksub_matmul_split_ref(c, x, y, x_k_major: bool = True, terms: int = 3) -> torch.Tensor:
+    """K2's arithmetic in plain PyTorch, as a new tensor: ``c - op(x) @ y``
+    with each f32 operand split as hi = tf32(v), lo = tf32(v - hi) and the
+    product summed as hi*hi, + lo*hi (``terms`` >= 2), + hi*lo (``terms``
+    = 3). Products of TF32 values are exact in f32, so an f32 matmul (TF32
+    off) of the parts is the tensor cores' arithmetic but for the order and
+    rounding of the sums. ``terms=1`` is one plain TF32 pass."""
+    if terms not in (1, 2, 3):
+        raise ValueError(f"terms must be 1, 2 or 3, got {terms}")
+    xa = _op(x, x_k_major)
+    xh, yh = tf32_round(xa), tf32_round(y)
+    prod = xh @ yh
+    if terms >= 2:
+        prod = prod + tf32_round(xa - xh) @ yh
+    if terms == 3:
+        prod = prod + xh @ tf32_round(y - yh)
+    return c - prod
 
 
 def ksub_matmul_masked_ref(c, x, y, grow, gcol, x_k_major: bool = True) -> torch.Tensor:
@@ -100,17 +134,31 @@ def ksub_matmul(c, x, y, x_k_major: bool = True) -> torch.Tensor:
     _check_no_overlap("ksub_matmul", c, x, y)
     if m == 0 or n == 0 or k == 0:
         return c
-    lib = _build.library("ksub")
+    lib = _build.library("ksub_tf32x3")
     with torch.cuda.device(c.device):
-        rc = lib.dlaf_ksub(c.data_ptr(), c.stride(0), x.data_ptr(), x.stride(0),
-                           y.data_ptr(), y.stride(0), m, n, k, int(x_k_major),
-                           _build.stream_of(c))
+        rc = lib.dlaf_ksub_tf32x3(c.data_ptr(), c.stride(0), x.data_ptr(), x.stride(0),
+                                  y.data_ptr(), y.stride(0), m, n, k, int(x_k_major),
+                                  _build.stream_of(c))
     _build.check(rc, lib, "ksub_matmul")
     ksub_matmul.launches += 1
     return c
 
 
 ksub_matmul.launches = 0
+
+
+def ksub_matmul_plan(c, x, y, x_k_major: bool = True) -> dict:
+    """How K2 runs these CUDA operands: ``vec16`` (16-byte copies, else
+    4-byte copies for unaligned views) and ``split`` (blocks of a cluster
+    sharing each output tile's k)."""
+    m, n, k = _shapes("ksub_matmul", c, x, y, x_k_major)
+    lib = _build.library("ksub_tf32x3")
+    out = (ctypes.c_int * 2)()
+    with torch.cuda.device(c.device):
+        rc = lib.dlaf_ksub_tf32x3_plan(x.data_ptr(), x.stride(0), y.data_ptr(), y.stride(0),
+                                       m, n, k, out)
+    _build.check(rc, lib, "ksub_matmul plan")
+    return {"vec16": bool(out[0]), "split": out[1]}
 
 
 def ksub_matmul_masked(c, x, y, grow, gcol, x_k_major: bool = True) -> torch.Tensor:

@@ -1,0 +1,188 @@
+"""Measurements of the PyTorch/H100 port beside chip_smoke.py's checks, on one CUDA card.
+
+    python3 scripts/torch_chip_probes.py accumulation bf16_potrf profile
+
+- ``accumulation``: K2 (``csrc/ksub_tf32x3.cu``) as built, where each
+  32-deep k step is summed on the tensor cores from zero and then added
+  into a second f32 accumulator, against a copy of its source (built into
+  ``build/dlaf_tpu_torch/accumulation/``) patched to keep one tensor-core
+  accumulator over all of k, each held to K2's error bound
+  eps32 (2k max|x| max|y| + max|c|) against an f64 product, on
+  chip_smoke.py's K2 shapes.
+- ``bf16_potrf``: ``dlaf_tpu_torch.potrf`` on a bf16 matrix (n = 4096,
+  nb = 512, U and L): whether it runs, and its residual and its distance
+  from the f32 factor of the same (bf16-rounded) input.
+- ``profile``: ``torch.profiler`` over one POTRF U at n = 32768 f32,
+  nb = 512, clean=False (chip_smoke.py's main path) on each route after a
+  warm-up: the device-busy total (the kernels' and copies' own device
+  time), each kernel's time and launches, and the idle share of the wall
+  time of an unprofiled run of the same call.
+
+Each probe prints one JSON line; the last line is the card's name and
+power limit as nvidia-smi gives them. Runs only where a CUDA device is.
+"""
+from __future__ import annotations
+
+import ctypes
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+if not torch.cuda.is_available():
+    print("torch_chip_probes: no CUDA device", file=sys.stderr)
+    sys.exit(1)
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import dlaf_tpu_torch as dt  # noqa: E402
+from dlaf_tpu_torch.matrix import generators as gen  # noqa: E402
+from dlaf_tpu_torch.ops import leaf  # noqa: E402
+from dlaf_tpu_torch.ops.kernels import _build  # noqa: E402
+from dlaf_tpu_torch.ops.kernels.potrf import factor_deviation, potrf_tile  # noqa: E402
+from dlaf_tpu_torch.ops.kernels.trailing import ksub_matmul, ksub_matmul_ref  # noqa: E402
+
+DEV = torch.device("cuda", 0)
+EPS32 = torch.finfo(torch.float32).eps
+# (m, n, k, x_k_major): the main path's largest update, a deep level's
+# split-k shape, and an NN shape
+ACC_CASES = [(8192, 8192, 16384, True), (512, 512, 16384, True), (4096, 4096, 8192, False)]
+
+
+def emit(probe: str, **kw) -> None:
+    print(json.dumps({"probe": probe, **kw}), flush=True)
+
+
+# (anchor in ksub_tf32x3.cu, the one-accumulator form); each anchor occurs once
+ONE_SUM_EDITS = [
+    ("tot[i] += acc[i];", "tot[i] = acc[i];"),
+    ("bt_desc(bh, s), s > 0);", "bt_desc(bh, s), s > 0 || kt > 0);"),
+]
+
+
+def _one_sum_library() -> ctypes.CDLL:
+    """A copy of ksub_tf32x3.cu patched to one tensor-core accumulator over
+    all of k: no k step's sum starts afresh, and the second accumulator
+    only takes the last value."""
+    src = (_build.CSRC / "ksub_tf32x3.cu").read_text()
+    for old, new in ONE_SUM_EDITS:
+        if src.count(old) != 1:
+            raise RuntimeError(f"ksub_tf32x3.cu changed: anchor not found once: {old!r}")
+        src = src.replace(old, new)
+    out = _build.BUILD_DIR / "accumulation"
+    out.mkdir(parents=True, exist_ok=True)
+    path, target = out / "ksub_tf32x3_one_sum.cu", out / "libksub_tf32x3_one_sum.so"
+    path.write_text(src)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(target), str(path)], check=True,
+                   capture_output=True, text=True)
+    lib = ctypes.CDLL(str(target))
+    for fn, argtypes in _build.SIGNATURES["ksub_tf32x3"].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    lib.dlaf_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.dlaf_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def probe_accumulation() -> None:
+    _build.build_all()
+    one_sum = _one_sum_library()
+    g = torch.Generator(device=DEV).manual_seed(2)
+    for m, n, k, kmaj in ACC_CASES:
+        c = gen.random_general(g, (m, n), torch.float32)
+        x = gen.random_general(g, (k, m) if kmaj else (m, k), torch.float32)
+        y = gen.random_general(g, (k, n), torch.float32)
+        want = ksub_matmul_ref(c.double(), x.double(), y.double(), kmaj)
+        bound = EPS32 * (2 * k * float(x.abs().max()) * float(y.abs().max()) + float(c.abs().max()))
+        got = ksub_matmul(c.clone(), x, y, x_k_major=kmaj)
+        err = float((got.double() - want).abs().max())
+        got = c.clone()
+        rc = one_sum.dlaf_ksub_tf32x3(got.data_ptr(), n, x.data_ptr(), x.stride(0), y.data_ptr(),
+                                      n, m, n, k, int(kmaj), _build.stream_of(got))
+        _build.check(rc, one_sum, "ksub_tf32x3 one-sum build")
+        err_one = float((got.double() - want).abs().max())
+        emit("accumulation", m=m, n=n, k=k, x_k_major=kmaj, bound=bound,
+             kstep_sums_err=err, kstep_sums_of_bound=err / bound,
+             one_accumulator_err=err_one, one_accumulator_of_bound=err_one / bound)
+        del c, x, y, want, got
+
+
+def probe_bf16_potrf() -> None:
+    n, nb = 4096, 512
+    a = gen.random_hermitian_positive_definite(torch.Generator(device=DEV).manual_seed(4), n,
+                                               torch.float32)
+    ab = a.to(torch.bfloat16)
+    for uplo in ("U", "L"):
+        k1 = potrf_tile.launches
+        try:
+            f = dt.potrf(ab, uplo=uplo, nb=nb)
+            torch.cuda.synchronize()
+        except Exception as e:   # the probe reports what refuses bf16
+            emit("bf16_potrf", n=n, nb=nb, uplo=uplo, runs=False,
+                 error=f"{type(e).__name__}: {e}"[:400])
+            continue
+        want = dt.potrf(ab.float(), uplo=uplo, nb=nb)
+        ff = f.float()
+        prod = ff.T @ ff if uplo == "U" else ff @ ff.T
+        res = float((prod - ab.float()).abs().max()) / float(ab.float().abs().max())
+        emit("bf16_potrf", n=n, nb=nb, uplo=uplo, runs=True, dtype=str(f.dtype),
+             k1_launches=potrf_tile.launches - k1, finite=bool(torch.isfinite(f).all()),
+             residual_of_max_a=res,
+             max_abs_diff_from_f32_factor=float((ff - want).abs().max()),
+             max_abs_f32_factor=float(want.abs().max()),
+             factor_deviation_c32_bf16=factor_deviation(f, want, 32, bf16=True))
+
+
+def _device_us(evt) -> float:
+    """A device event's own time (a host op's device time is its kernels')."""
+    from torch.autograd import DeviceType
+    if evt.device_type != DeviceType.CUDA:
+        return 0.0
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def probe_profile() -> None:
+    from torch.profiler import ProfilerActivity, profile
+    n, nb = 32768, 512
+    a = gen.random_hermitian_positive_definite(torch.Generator(device=DEV).manual_seed(0), n,
+                                               torch.float32)
+    for route in ("kernel", "torch"):
+        leaf.set_leaf_backend(None if route == "kernel" else "torch")
+        dt.set_tune_parameters(potrf_trailing_kernel=route)
+        dt.potrf(a, uplo="U", nb=nb, clean=False)          # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dt.potrf(a, uplo="U", nb=nb, clean=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            dt.potrf(a, uplo="U", nb=nb, clean=False)
+            torch.cuda.synchronize()
+            wall_profiled = time.perf_counter() - t0
+        rows = [(e.key, _device_us(e), e.count) for e in prof.key_averages()]
+        rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
+        busy_ms = sum(r[1] for r in rows) / 1e3
+        emit("profile", route=route, n=n, nb=nb, uplo="U", wall_ms=wall * 1e3,
+             wall_profiled_ms=wall_profiled * 1e3, device_busy_ms=busy_ms,
+             idle_share=1 - busy_ms / (wall * 1e3),
+             kernels=[{"name": r[0][:120], "ms": r[1] / 1e3, "launches": r[2],
+                       "share": r[1] / 1e3 / busy_ms} for r in rows[:14]])
+    leaf.set_leaf_backend(None)
+    dt.reset_tune_parameters()
+
+
+PROBES = {"accumulation": probe_accumulation, "bf16_potrf": probe_bf16_potrf,
+          "profile": probe_profile}
+
+
+if __name__ == "__main__":
+    for name in sys.argv[1:] or list(PROBES):
+        PROBES[name]()
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip())

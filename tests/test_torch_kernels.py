@@ -268,9 +268,9 @@ def test_ksub_cuda(x_k_major):
 
 def test_potrf_tile_cuda_oversize_nb_raises():
     """A 32-row slab of nb = 1816 does not fit in one block's shared memory
-    on an H100: the launch fails and the wrapper raises; nb = 1808 runs."""
+    on an H100: the wrapper refuses it before a launch; nb = 1808 runs."""
     _need_cuda()
     a = torch.from_numpy(_spd(np.random.default_rng(9), 1816)).cuda()
     assert torch.isfinite(kpotrf.potrf_tile(a[:1808, :1808])).all()
-    with pytest.raises(RuntimeError, match="CUDA error"):
+    with pytest.raises(ValueError, match="nb <= 1808"):
         kpotrf.potrf_tile(a)
