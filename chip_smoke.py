@@ -44,13 +44,16 @@ one K4 group on that record held to their plain versions and timed; and
 call with the most chases held to its plain version on the buffer it was
 given), 2048 in three re-chased chunks and complex64 4096.
 
-The distributed slice: K6 (the masked trailing update) against its plain
+The distributed slice: K6 (the masked trailing update, K2's 3xTF32
+tensor-core kernel with a mask) against its plain
 version at the shapes the distributed Cholesky gives it at n = 32768 (the
 heaviest lower and upper staircase chunks, a panel-step update with
 sentinel columns), on the index pattern of a 2x2 grid with ragged,
 row-strided views, through the split-k cluster path, and on inputs whose
-tiles are all dead, each check beside a planted fault, with bit-identical
-repeats, the heaviest chunk timed against cuBLAS's unmasked ``addmm``;
+tiles are all dead, each check beside a planted fault, the heaviest chunks
+also beside the one- and two-term TF32 splits under the mask, with
+bit-identical repeats, the heaviest chunk timed against cuBLAS's unmasked
+``addmm``;
 then ``dlaf_tpu_torch.cholesky`` on a 1x1 grid at n = 32768 f32, nb = 512
 (``scripts/bench_dist.py``'s configuration), L then U, in turns through
 K1 + K6 and the plain route, held to the residual and route gates (each
@@ -109,8 +112,8 @@ from dlaf_tpu_torch.ops.householder import householder_vector  # noqa: E402
 from dlaf_tpu_torch.ops.kernels.band2tridiag import (  # noqa: E402
     band_to_tridiag_strips_kernel, band_to_tridiag_strips_ref, chase_plan)
 from dlaf_tpu_torch.ops.kernels.trailing import (  # noqa: E402
-    ksub_matmul, ksub_matmul_masked, ksub_matmul_masked_ref, ksub_matmul_plan, ksub_matmul_ref,
-    ksub_matmul_split_ref)
+    ksub_matmul, ksub_matmul_masked, ksub_matmul_masked_ref, ksub_matmul_masked_split_ref,
+    ksub_matmul_plan, ksub_matmul_ref, ksub_matmul_split_ref)
 from dlaf_tpu_torch.algos.eigensolver import bt as btm  # noqa: E402
 from dlaf_tpu_torch.ops.kernels.bt_apply import (  # noqa: E402
     bt_apply_fused, bt_apply_fused_ref, bt_apply_group, bt_apply_group_ref)
@@ -1576,11 +1579,13 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
 
 
 def _k6_bound(c, y, gr, gc) -> tuple[float, str, dict]:
-    """The least time of one K6 call: the flops its kept entries need (2k
-    each) over the f32 peak, or its bytes (c read and written, x, y and
+    """The least time of one K6 call at its own arithmetic's rate: the
+    tensor-core operations its kept entries need (three TF32 passes, 6k
+    each) over the TF32 peak, or its bytes (c read and written, x, y and
     the index vectors read once) over HBM bandwidth, whichever is larger.
-    Beside it, the flops of the live 128 x 128 tiles, the work the kernel
-    does (it skips the dead ones)."""
+    Beside it, the f32 FFMA bound of the same 2k a kept entry, and the
+    flops of the live 128 x 128 tiles, the work the kernel does (it skips
+    the dead ones)."""
     m, n = c.shape
     k = y.shape[0]
     kept = int((gr >= gc).sum())
@@ -1593,19 +1598,23 @@ def _k6_bound(c, y, gr, gc) -> tuple[float, str, dict]:
     cols = torch.clamp(n - torch.arange(0, n, t, device=c.device), max=t)
     live_entries = int((live * rows[:, None] * cols[None, :]).sum())
     nbytes = 4 * (2 * m * n + (m + n) * k + m + n)
-    ms = {"operations": 2 * k * kept / PEAK_F32 * 1e3, "bytes": nbytes / PEAK_BYTES * 1e3}
+    ms = {"operations": 6 * k * kept / PEAK_TF32 * 1e3, "bytes": nbytes / PEAK_BYTES * 1e3}
     by = max(ms, key=ms.get)
     return ms[by], by, {"kept_entries": kept, "flops": 2 * k * kept, "bytes": nbytes,
+                        "bound_tf32x3_ms": ms[by],
+                        "bound_f32_ffma_ms": max(2 * k * kept / PEAK_F32 * 1e3, ms["bytes"]),
                         "live_tile_flops": 2 * k * live_entries,
-                        "live_tile_bound_ms": 2 * k * live_entries / PEAK_F32 * 1e3}
+                        "live_tile_bound_ms": 6 * k * live_entries / PEAK_TF32 * 1e3}
 
 
-def _k6_case(name, c, x, y, gr, gc, kmaj, outside=None) -> dict:
+def _k6_case(name, c, x, y, gr, gc, kmaj, outside=None, splits=False) -> dict:
     """K6 on (c, x, y) against its plain version in f64, in place on ``c``
     (a view), and each check beside a planted fault it must reject:
 
       - max|K6 - f64| <= eps32 (2k max|x| max|y| + max|c|) (K2's bound),
-        shown the plain result with one live tile's mask inverted;
+        shown the plain result with one live tile's mask inverted and, with
+        ``splits``, K6's split cut to one TF32 term and to two under the
+        mask (emulated on the card);
       - the entries outside the mask bit-equal to the input, shown one of
         them moved by one ulp;
       - a second run on the same input bit-identical to the first;
@@ -1613,6 +1622,7 @@ def _k6_case(name, c, x, y, gr, gc, kmaj, outside=None) -> dict:
     """
     m, n = c.shape
     k = y.shape[0]
+    plan = ksub_matmul_plan(c, x, y, kmaj)
     c0 = c.clone()
     out0 = outside.clone() if outside is not None else None
     keep = (gr >= gc).expand(m, n)
@@ -1622,7 +1632,7 @@ def _k6_case(name, c, x, y, gr, gc, kmaj, outside=None) -> dict:
     c.copy_(c0)
     ksub_matmul_masked(c, x, y, gr, gc, x_k_major=kmaj)
     bound = EPS32 * (2 * k * float(x.abs().max()) * float(y.abs().max()) + float(c0.abs().max()))
-    r = {"m": m, "n": n, "k": k, "x_k_major": kmaj, "ldc": c.stride(0),
+    r = {"m": m, "n": n, "k": k, "x_k_major": kmaj, "ldc": c.stride(0), "plan": plan,
          "kept_share": float(keep.float().mean()), "bound": bound,
          "max_abs_err": float((got.double() - want).abs().max()),
          "masked_out_bit_equal": bool(torch.equal(torch.where(keep, 0, _bits(got)),
@@ -1638,6 +1648,11 @@ def _k6_case(name, c, x, y, gr, gc, kmaj, outside=None) -> dict:
         bad[i:i + 128, j:j + 128] = torch.where(keep[i:i + 128, j:j + 128],
                                                 c0[i:i + 128, j:j + 128].double(), full)
         r["planted_fault_err"] = float((bad - want).abs().max())
+    if splits:
+        for t in (1, 2):
+            r[f"planted_{t}_term_err"] = float(
+                (ksub_matmul_masked_split_ref(c0, x, y, gr, gc, kmaj, terms=t).double()
+                 - want).abs().max())
     if not bool(keep.all()):
         # one entry outside the mask one ulp off
         i, j = (int(v) for v in (~keep).nonzero()[0])
@@ -1651,6 +1666,9 @@ def _k6_case(name, c, x, y, gr, gc, kmaj, outside=None) -> dict:
     require(r["bit_identical"] and r["outside_unchanged"], f"K6 {name}: {r}")
     require(r.get("planted_fault_err", bound + 1) > bound,
             f"K6 {name}: the error check passes an inverted tile mask")
+    for t in (1, 2):
+        require(r.get(f"planted_{t}_term_err", bound + 1) > bound,
+                f"K6 {name}: the error check passes a {t}-term TF32 split")
     require(not r.get("planted_fault_masked_out_bit_equal", False),
             f"K6 {name}: the bit check passes a changed entry")
     return r
@@ -1665,10 +1683,11 @@ def _strided_buf(g, rows, cols, pad):
 
 def phase_k6() -> None:
     """K6 against its plain version: the distributed POTRF's own shapes at
-    n = 32768 (views into one n x n buffer, leading dimension n), the 2x2
-    grid's index pattern on ragged row-strided views in both layouts, the
-    split-k cluster path with dead and live clusters, and all-dead inputs
-    (bit-unchanged); then the heaviest chunk timed."""
+    n = 32768 (views into one n x n buffer, leading dimension n; the
+    heaviest chunks beside the one- and two-term TF32 splits), the 2x2
+    grid's index pattern on ragged row-strided views in both layouts (the
+    4-byte copy path), the split-k cluster path with dead and live clusters,
+    and all-dead inputs (bit-unchanged); then the heaviest chunk timed."""
     g = torch.Generator(device=DEV).manual_seed(8)
     n, nb = N_MAIN, NB_MAIN
     m, w, k = K6_CHUNK
@@ -1685,7 +1704,7 @@ def phase_k6() -> None:
     # the heaviest lower staircase chunk: a[t0*nb:, c0*nb:c1*nb] -= wide @ wide_t
     cL, xL, yL = big[r0:, r0:r0 + w], rnd((m, k)), rnd((k, m))[:, :w]
     grL, gcL = idx[r0:, None], idx[None, r0:r0 + w]
-    keep(_k6_case("chunk_lower_heaviest", cL, xL, yL, grL, gcL, False))
+    keep(_k6_case("chunk_lower_heaviest", cL, xL, yL, grL, gcL, False, splits=True))
     # a panel-step update (kt = 0): the panel's last 512 columns carry the sentinel
     cols = torch.arange(nb, 4 * nb, device=DEV, dtype=torch.int32)
     keep(_k6_case("panel_step_sentinel", big[:, nb:4 * nb], rnd((n, nb)),
@@ -1693,7 +1712,8 @@ def phase_k6() -> None:
                   torch.where(cols < 3 * nb, cols, K6_SENTINEL)[None, :], False))
     # the heaviest upper staircase chunk, i <= j on negated indices
     keep(_k6_case("chunk_upper_heaviest", big[r0:r0 + w, r0:], rnd((m, k))[:w],
-                  rnd((k, n))[:, r0:], -idx[r0:r0 + w, None], -idx[None, r0:], False))
+                  rnd((k, n))[:, r0:], -idx[r0:r0 + w, None], -idx[None, r0:], False,
+                  splits=True))
     # rank (1, 0) of a 2x2 grid (64-row tiles): ragged, unaligned row-strided views
     gr22 = global_indices(16, 64, 2, 1, DEV)[:1000, None].int()
     gc22 = global_indices(13, 64, 2, 0, DEV)[None, :777].int()
@@ -1718,13 +1738,19 @@ def phase_k6() -> None:
     plain_ms = cuda_ms(lambda: ksub_matmul_masked_ref(cL, xL, yL, grL, gcL, False), 5)
     library_ms = cuda_ms(lambda: torch.addmm(cL, xL, yL, alpha=-1), 5)
     bound_ms, bound_by, work = _k6_bound(cL, yL, grL, gcL)
+    # FFMA-equivalent rate (2k a kept entry) and the tensor cores' share of
+    # their TF32 peak (three passes, 6k a kept entry)
+    tflops = work["flops"] / ms / 1e9
     emit("k6_time", m=m, n=w, k=k, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
          library="torch.addmm (unmasked)", bound_ms=bound_ms, bound_by=bound_by,
-         tflops=work["flops"] / ms / 1e9, **work)
+         tflops=tflops, of_f32_peak=tflops * 1e12 / PEAK_F32, tensor_tflops=3 * tflops,
+         of_tf32_peak=3 * tflops * 1e12 / PEAK_TF32, plan=ksub_matmul_plan(cL, xL, yL, False),
+         **work)
     KERNELS.setdefault("ksub_matmul_masked", {}).update(
-        name="ksub_matmul_masked", route="cuda", source="dlaf_tpu_torch/csrc/ksub.cu",
+        name="ksub_matmul_masked", route="cuda", source="dlaf_tpu_torch/csrc/ksub_tf32x3.cu",
         replaces="dlaf_tpu/ops/pallas/trailing.py:147", max_abs_err=worst["max_abs_err"],
         bound=worst["bound"], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        bound_tf32x3_ms=work["bound_tf32x3_ms"], bound_f32_ffma_ms=work["bound_f32_ffma_ms"],
         library_ms=library_ms, timed_shape=[m, w, k])
     del big, cL, xL, yL
     torch.cuda.empty_cache()

@@ -1,22 +1,28 @@
-// K2: fused trailing update C <- C - op(X) Y on Hopper (sm_90a), f32 data,
-// products on the tensor cores in three TF32 passes.
+// K2 and K6: fused trailing updates C <- C - op(X) Y on Hopper (sm_90a), f32
+// data, products on the tensor cores in three TF32 passes.
 //
-// Replaces the Pallas TPU kernel dlaf_tpu/ops/pallas/trailing.py
-// ksub_matmul (_ksub_kernel). As there, the product and the subtract share
-// one accumulator and the product never reaches device memory; C is read
-// once and written once, in place. The TPU kernel runs its matrix unit in
-// three bf16 passes (hi*hi + lo*hi + hi*lo); this kernel runs the same
-// split in TF32, the Hopper tensor cores' f32-input type.
+// K2 replaces the Pallas TPU kernel dlaf_tpu/ops/pallas/trailing.py
+// ksub_matmul (_ksub_kernel); K6, the masked instantiation, replaces
+// ksub_matmul_masked (_ksub_kernel_masked): the distributed POTRF's
+// trailing updates, C - X Y only where grow[i] >= gcol[j] (int32 global row
+// and column indices; a sentinel column index above every row index, or
+// both vectors negated for the upper mask i <= j, are plain compares). As
+// there, the product and the subtract share one accumulator and the product
+// never reaches device memory; C is read once and written once, in place.
+// The TPU kernel runs its matrix unit in three bf16 passes (hi*hi + lo*hi +
+// hi*lo); this kernel runs the same split in TF32, the Hopper tensor cores'
+// f32-input type.
 //
-// What bounds it: at the main-path shapes (up to m = n = 8192, k = 16384)
-// this is a large GEMM. In f32 FFMA it is bound by 67 TFLOP/s (the first
-// design of this kernel, still K6's in ksub.cu, reached 34-38); three TF32
-// passes on the tensor cores (495 TFLOP/s dense on an H100 SXM) bound it
-// at an effective 165 TFLOP/s. Only wgmma reaches that rate (a first
-// design of this kernel on mma.sync m16n8k8 in the same tile was slower
-// than cuBLAS's FFMA GEMM; PERF.md has both designs' times). The f32
-// operands of a 128 x 128 tile stream in from L2 at 32 KB a 32-deep k
-// step, which at the tensor cores' pace is near the L2's rate. The deep levels of the POTRF recursion ask for small
+// What bounds it: at the main-path shapes (up to m = n = 8192, k = 16384;
+// K6's heaviest is m = 30720, n = 1536, k = 2048) this is a large GEMM. In
+// f32 FFMA it is bound by 67 TFLOP/s (the first design of this kernel, an
+// FFMA tile, reached 34-38); three TF32 passes on the tensor cores (495
+// TFLOP/s dense on an H100 SXM) bound it at an effective 165 TFLOP/s. Only
+// wgmma reaches that rate (a first design of this kernel on mma.sync
+// m16n8k8 in the same tile was slower than cuBLAS's FFMA GEMM; PERF.md has
+// both designs' times). The f32 operands of a 128 x 128 tile stream in
+// from L2 at 32 KB a 32-deep k step, which at the tensor cores' pace is
+// near the L2's rate. The deep levels of the POTRF recursion ask for small
 // m x n (512 x 512, 16 output tiles) with k up to 16384, which alone would
 // leave most SMs idle.
 //
@@ -55,8 +61,18 @@
 // drained); after a cluster barrier, block r sums its share of the tile's
 // rows over all S partials through distributed shared memory, in the fixed
 // order 0..S-1 (deterministic), and subtracts the sum from C.
+//
+// The mask (K6, kMasked): before its first copy each block loads its tile's
+// slice of grow and gcol into shared memory and reduces max(grow) and
+// min(gcol). A dead tile (max < min: wholly outside the mask) returns at
+// once, so C is neither read nor written there and the staircase's
+// conservative chunks cost only their live tiles. The S blocks of a split
+// cluster share one output tile, so they are dead together and all return
+// before either cluster barrier. A live tile subtracts only where the mask
+// holds, in either epilogue; entries outside it are never written.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace cg = cooperative_groups;
@@ -73,10 +89,18 @@ constexpr int kBTile = BK * kLdRow;
 constexpr int kStage = kATile + kBTile;    // floats a stage
 constexpr int kBt = BN * BK;               // one K-major TF32 tile of Y (hi or lo)
 constexpr size_t kSmem = sizeof(float) * (kStages * kStage + 4 * kBt);
+// K6 keeps its tile's row and column indices and the warps' max/min after
+// the ring and the B tiles
+constexpr int kIdx = BM + BN + kThreads / 32;
+constexpr size_t kSmemMasked = kSmem + sizeof(int) * kIdx;
 constexpr int kLdPart = BN + 4;            // a split's partial tile [BM][BN + 4]
 constexpr int kMaxSplit = 8;               // portable cluster size
 static_assert(BM * kLdPart <= kStages * kStage, "the partial tile reuses the ring");
 static_assert(BM == 128 && BN == 128 && kThreads == 256, "two warpgroups of 64 x 128");
+static_assert(kThreads == BM + BN, "K6 loads one index a thread");
+
+template <bool kMasked>
+constexpr size_t smem_bytes() { return kMasked ? kSmemMasked : kSmem; }
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -153,11 +177,12 @@ __device__ __forceinline__ void wgmma_wait() { asm volatile("wgmma.wait_group.sy
 __device__ __forceinline__ void reg_fence(float& r) { asm volatile("" : "+f"(r)::"memory"); }
 __device__ __forceinline__ void reg_fence(uint32_t& r) { asm volatile("" : "+r"(r)::"memory"); }
 
-// C[gm][gn..gn+3] -= v, float4 where aligned and whole
+// C[gm][gn..gn+3] -= v where keep[j], float4 where aligned, whole and all
+// kept; entries not kept are not written
 __device__ __forceinline__ void sub4(float* c, long long ldc, bool vec, int gm, int gn, int n,
-                                     float4 v) {
+                                     float4 v, const bool (&keep)[4]) {
   float* p = c + gm * ldc + gn;
-  if (vec && gn + 3 < n) {
+  if (vec && gn + 3 < n && keep[0] && keep[1] && keep[2] && keep[3]) {
     float4 o = *reinterpret_cast<float4*>(p);
     o.x -= v.x; o.y -= v.y; o.z -= v.z; o.w -= v.w;
     *reinterpret_cast<float4*>(p) = o;
@@ -165,21 +190,47 @@ __device__ __forceinline__ void sub4(float* c, long long ldc, bool vec, int gm, 
     const float w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      if (gn + j < n) p[j] -= w[j];
+      if (keep[j] && gn + j < n) p[j] -= w[j];
   }
 }
 
 // kXkm: X is (k, m) (the upper-POTRF layout), else (m, k). kVec: every
 // operand 16-byte aligned with leading dimensions % 4 == 0. kSplit: the
-// cluster split of k (gridDim.z blocks a tile).
-template <bool kXkm, bool kVec, bool kSplit>
+// cluster split of k (gridDim.z blocks a tile). kMasked: K6, C written only
+// where grow[i] >= gcol[j] (grow and gcol unused otherwise).
+template <bool kXkm, bool kVec, bool kSplit, bool kMasked>
 __global__ void __launch_bounds__(kThreads, 1)
 ksub_tf32x3_kernel(float* __restrict__ c, long long ldc, const float* __restrict__ x,
                    long long ldx, const float* __restrict__ y, long long ldy, int m, int n,
-                   int k, int kchunk) {
+                   int k, int kchunk, const int* __restrict__ grow,
+                   const int* __restrict__ gcol) {
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  // K6: the tile's row and column indices (rows past m and columns past n
+  // can never be updated), then the tile's liveness
+  int* sgr = reinterpret_cast<int*>(smem + kStages * kStage + 4 * kBt);
+  int* sgc = sgr + BM;
+  if constexpr (kMasked) {
+    int* sred = sgc + BN;
+    int v;
+    if (tid < BM) {
+      v = m0 + tid < m ? grow[m0 + tid] : INT_MIN;
+      sgr[tid] = v;
+    } else {
+      v = n0 + tid - BM < n ? gcol[n0 + tid - BM] : INT_MAX;
+      sgc[tid - BM] = v;
+    }
+    // warps 0-3 hold rows, 4-7 columns
+    const int r = tid < BM ? __reduce_max_sync(0xffffffffu, v) : __reduce_min_sync(0xffffffffu, v);
+    if (lane == 0) sred[warp] = r;
+    __syncthreads();
+    const int rmax = max(max(sred[0], sred[1]), max(sred[2], sred[3]));
+    const int cmin = min(min(sred[4], sred[5]), min(sred[6], sred[7]));
+    // a dead tile keeps C as it is: no product, no read, no write; a split
+    // cluster's blocks all return here together, before any cluster.sync()
+    if (rmax < cmin) return;
+  }
   const int kbeg = kSplit ? blockIdx.z * kchunk : 0, kend = kSplit ? min(k, kbeg + kchunk) : k;
   const int nkt = kend > kbeg ? (kend - kbeg + BK - 1) / BK : 0;
   const int g = lane / 4, t = lane % 4;   // fragment row/column roles
@@ -280,19 +331,22 @@ ksub_tf32x3_kernel(float* __restrict__ c, long long ldc, const float* __restrict
     for (int h = 0; h < 2; ++h) {
       const int gm = m0 + wr + g + h * 8;
       if (gm >= m) continue;
+      const int gr = kMasked ? sgr[wr + g + h * 8] : 0;
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
         const int gn = n0 + j * 8 + 2 * t;
         float* p = c + gm * ldc + gn;
         const float v0 = tot[4 * j + 2 * h], v1 = tot[4 * j + 2 * h + 1];
-        if (vec2 && gn + 1 < n) {
+        const bool k0 = !kMasked || gr >= sgc[j * 8 + 2 * t];
+        const bool k1 = !kMasked || gr >= sgc[j * 8 + 2 * t + 1];
+        if (vec2 && gn + 1 < n && k0 && k1) {
           float2 o = *reinterpret_cast<float2*>(p);
           o.x -= v0;
           o.y -= v1;
           *reinterpret_cast<float2*>(p) = o;
         } else {
-          if (gn < n) p[0] -= v0;
-          if (gn + 1 < n) p[1] -= v1;
+          if (k0 && gn < n) p[0] -= v0;
+          if (k1 && gn + 1 < n) p[1] -= v1;
         }
       }
     }
@@ -321,7 +375,15 @@ ksub_tf32x3_kernel(float* __restrict__ c, long long ldc, const float* __restrict
                                                         r * kLdPart + cc);
       v.x += p.x; v.y += p.y; v.z += p.z; v.w += p.w;
     }
-    if (m0 + r < m) sub4(c, ldc, vec, m0 + r, n0 + cc, n, v);
+    if (m0 + r >= m) continue;
+    if constexpr (kMasked) {
+      const int gr = sgr[r];
+      const bool keep[4] = {gr >= sgc[cc], gr >= sgc[cc + 1], gr >= sgc[cc + 2], gr >= sgc[cc + 3]};
+      sub4(c, ldc, vec, m0 + r, n0 + cc, n, v, keep);
+    } else {
+      const bool keep[4] = {true, true, true, true};
+      sub4(c, ldc, vec, m0 + r, n0 + cc, n, v, keep);
+    }
   }
   cluster.sync();               // keep each partial alive until read
 }
@@ -337,10 +399,11 @@ int num_sms() {
 }
 
 // clusters of s blocks (one output tile's split) the card holds at once
+// (K6's few more bytes of shared memory leave one block a SM, as K2's)
 int clusters_fit(int s) {
   static int fit[kMaxSplit + 1] = {};
   if (fit[s] == 0) {
-    cudaFuncSetAttribute(ksub_tf32x3_kernel<true, true, true>,
+    cudaFuncSetAttribute(ksub_tf32x3_kernel<true, true, true, false>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(1, 1, s);
@@ -353,8 +416,8 @@ int clusters_fit(int s) {
     attr[0].val.clusterDim.z = s;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    if (cudaOccupancyMaxActiveClusters(&fit[s], (const void*)ksub_tf32x3_kernel<true, true, true>,
-                                       &cfg) != cudaSuccess)
+    const void* kernel = (const void*)ksub_tf32x3_kernel<true, true, true, false>;
+    if (cudaOccupancyMaxActiveClusters(&fit[s], kernel, &cfg) != cudaSuccess)
       fit[s] = -1;
   }
   return fit[s];
@@ -370,23 +433,24 @@ int split_of(int m, int n, int k) {
   return 1;
 }
 
-template <bool kXkm, bool kVec>
+template <bool kXkm, bool kVec, bool kMasked>
 int launch(float* c, long long ldc, const float* x, long long ldx, const float* y, long long ldy,
-           int m, int n, int k, cudaStream_t stream) {
+           int m, int n, int k, const int* grow, const int* gcol, cudaStream_t stream) {
   const int split = split_of(m, n, k);
   const int kchunk = ((k + split - 1) / split + BK - 1) / BK * BK;
+  constexpr int smem = (int)smem_bytes<kMasked>();
   static const cudaError_t attr_err[2] = {
-      cudaFuncSetAttribute(ksub_tf32x3_kernel<kXkm, kVec, false>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem),
-      cudaFuncSetAttribute(ksub_tf32x3_kernel<kXkm, kVec, true>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem)};
+      cudaFuncSetAttribute(ksub_tf32x3_kernel<kXkm, kVec, false, kMasked>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem),
+      cudaFuncSetAttribute(ksub_tf32x3_kernel<kXkm, kVec, true, kMasked>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem)};
   if (attr_err[0] != cudaSuccess) return (int)attr_err[0];
   if (attr_err[1] != cudaSuccess) return (int)attr_err[1];
 
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((n + BN - 1) / BN, (m + BM - 1) / BM, split);
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = kSmem;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -395,8 +459,10 @@ int launch(float* c, long long ldc, const float* x, long long ldx, const float* 
   attr[0].val.clusterDim.z = split;
   cfg.attrs = attr;
   cfg.numAttrs = split > 1 ? 1 : 0;
-  auto kernel = split > 1 ? ksub_tf32x3_kernel<kXkm, kVec, true> : ksub_tf32x3_kernel<kXkm, kVec, false>;
-  cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, c, ldc, x, ldx, y, ldy, m, n, k, kchunk);
+  auto kernel = split > 1 ? ksub_tf32x3_kernel<kXkm, kVec, true, kMasked>
+                          : ksub_tf32x3_kernel<kXkm, kVec, false, kMasked>;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, c, ldc, x, ldx, y, ldy, m, n, k, kchunk, grow,
+                                     gcol);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -405,27 +471,47 @@ bool aligned16(const void* p, long long ld) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0 && ld % 4 == 0;
 }
 
-}  // namespace
-
-// C (m, n) -= op(X) Y: X (k, m) with x_k_major, else (m, k); Y (k, n); every
-// operand row-major with unit column stride and the leading dimension given
-extern "C" int dlaf_ksub_tf32x3(void* c, long long ldc, const void* x, long long ldx,
-                                const void* y, long long ldy, int m, int n, int k,
-                                int x_k_major, void* stream) {
+// the instantiation for this layout and copy path
+template <bool kMasked>
+int dispatch(void* c, long long ldc, const void* x, long long ldx, const void* y, long long ldy,
+             const void* grow, const void* gcol, int m, int n, int k, int x_k_major,
+             void* stream) {
   if (m <= 0 || n <= 0 || k <= 0) return (int)cudaErrorInvalidValue;
   auto cp = static_cast<float*>(c);
   auto xp = static_cast<const float*>(x);
   auto yp = static_cast<const float*>(y);
+  auto gr = static_cast<const int*>(grow);
+  auto gc = static_cast<const int*>(gcol);
   auto s = static_cast<cudaStream_t>(stream);
   const bool vec = aligned16(x, ldx) && aligned16(y, ldy);
   if (x_k_major)
-    return vec ? launch<true, true>(cp, ldc, xp, ldx, yp, ldy, m, n, k, s)
-               : launch<true, false>(cp, ldc, xp, ldx, yp, ldy, m, n, k, s);
-  return vec ? launch<false, true>(cp, ldc, xp, ldx, yp, ldy, m, n, k, s)
-             : launch<false, false>(cp, ldc, xp, ldx, yp, ldy, m, n, k, s);
+    return vec ? launch<true, true, kMasked>(cp, ldc, xp, ldx, yp, ldy, m, n, k, gr, gc, s)
+               : launch<true, false, kMasked>(cp, ldc, xp, ldx, yp, ldy, m, n, k, gr, gc, s);
+  return vec ? launch<false, true, kMasked>(cp, ldc, xp, ldx, yp, ldy, m, n, k, gr, gc, s)
+             : launch<false, false, kMasked>(cp, ldc, xp, ldx, yp, ldy, m, n, k, gr, gc, s);
 }
 
-// which copy path and split a call takes, for the checks (int[2])
+}  // namespace
+
+// K2: C (m, n) -= op(X) Y: X (k, m) with x_k_major, else (m, k); Y (k, n);
+// every operand row-major with unit column stride and the leading dimension
+// given
+extern "C" int dlaf_ksub_tf32x3(void* c, long long ldc, const void* x, long long ldx,
+                                const void* y, long long ldy, int m, int n, int k,
+                                int x_k_major, void* stream) {
+  return dispatch<false>(c, ldc, x, ldx, y, ldy, nullptr, nullptr, m, n, k, x_k_major, stream);
+}
+
+// K6: C (m, n) -= op(X) Y where grow[i] >= gcol[j], else C unchanged;
+// operands as for K2; grow (m) and gcol (n) contiguous int32 vectors
+extern "C" int dlaf_ksub_tf32x3_masked(void* c, long long ldc, const void* x, long long ldx,
+                                       const void* y, long long ldy, const void* grow,
+                                       const void* gcol, int m, int n, int k, int x_k_major,
+                                       void* stream) {
+  return dispatch<true>(c, ldc, x, ldx, y, ldy, grow, gcol, m, n, k, x_k_major, stream);
+}
+
+// which copy path and split a call takes, K2's or K6's, for the checks (int[2])
 extern "C" int dlaf_ksub_tf32x3_plan(const void* x, long long ldx, const void* y, long long ldy,
                                      int m, int n, int k, void* out) {
   int* o = static_cast<int*>(out);

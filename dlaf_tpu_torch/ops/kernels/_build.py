@@ -42,12 +42,10 @@ SIGNATURES = {
     "ksub_tf32x3": {
         # c, ldc, x, ldx, y, ldy, m, n, k, x_k_major, stream
         "dlaf_ksub_tf32x3": [_P, _LL, _P, _LL, _P, _LL, _I, _I, _I, _I, _P],
+        # K6: c, ldc, x, ldx, y, ldy, grow, gcol (int32), m, n, k, x_k_major, stream
+        "dlaf_ksub_tf32x3_masked": [_P, _LL, _P, _LL, _P, _LL, _P, _P, _I, _I, _I, _I, _P],
         # x, ldx, y, ldy, m, n, k, out (int[2]: 16-byte copies, k split)
         "dlaf_ksub_tf32x3_plan": [_P, _LL, _P, _LL, _I, _I, _I, _P],
-    },
-    "ksub": {
-        # c, ldc, x, ldx, y, ldy, grow, gcol, m, n, k, x_k_major, stream
-        "dlaf_ksub_masked": [_P, _LL, _P, _LL, _P, _LL, _P, _P, _I, _I, _I, _I, _P],
     },
     "band2tridiag": {
         # strips, vs, taus, n, b, nrec, sweep_lo, is_complex, stream
@@ -64,7 +62,7 @@ SIGNATURES = {
 }
 
 _libs: dict = {}
-build_log: dict = {}   # library -> {"seconds": float, "ptxas": str}
+build_log: dict = {}   # library -> {"seconds": float, "ptxas": str (registers, spills)}
 
 
 def on_cuda(t: torch.Tensor) -> bool:
@@ -117,7 +115,7 @@ def build_all() -> dict:
         os.replace(tmp, _target(name))
         build_log[name] = {"seconds": time.perf_counter() - t0,
                            "ptxas": " | ".join(l.strip() for l in out.splitlines()
-                                               if "ptxas info" in l)}
+                                               if "ptxas info" in l or "spill" in l)}
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return build_log

@@ -8,17 +8,19 @@ POTRF's trailing updates). In both the product and the subtract share one
 register accumulator, so the product never reaches device memory, and C is
 read once and written once, in place.
 
-K2 is ``dlaf_tpu_torch/csrc/ksub_tf32x3.cu``: the products run on the
+Both are ``dlaf_tpu_torch/csrc/ksub_tf32x3.cu``: the products run on the
 tensor cores in three TF32 passes (hi*hi + lo*hi + hi*lo of a two-term TF32
 split of each f32 operand, the TPU kernel's bf16_3x scheme in TF32), which
-holds f32's error bound; a single TF32 pass would not. K6 is
-``dlaf_tpu_torch/csrc/ksub.cu``: plain f32 FFMA, skipping the tiles its
-mask leaves wholly untouched.
+holds f32's error bound; a single TF32 pass would not. K6 is that kernel's
+masked instantiation: a 128 x 128 output tile wholly outside the mask
+returns before it reads anything, and a live tile writes only the entries
+inside the mask.
 
 :func:`ksub_matmul` and :func:`ksub_matmul_masked` dispatch on the tensor's
 device: a CPU tensor takes the plain version; a CUDA tensor launches the
-kernel or raises. :func:`ksub_matmul_split_ref` emulates K2's split in
-plain PyTorch, for the checks; no route runs it.
+kernel or raises. :func:`ksub_matmul_split_ref` and
+:func:`ksub_matmul_masked_split_ref` emulate the kernels' split in plain
+PyTorch, for the checks; no route runs them.
 """
 from __future__ import annotations
 
@@ -71,9 +73,17 @@ def ksub_matmul_masked_ref(c, x, y, grow, gcol, x_k_major: bool = True) -> torch
     return torch.where(grow >= gcol, c - _op(x, x_k_major) @ y, c)
 
 
+def ksub_matmul_masked_split_ref(c, x, y, grow, gcol, x_k_major: bool = True,
+                                 terms: int = 3) -> torch.Tensor:
+    """K6's arithmetic in plain PyTorch: :func:`ksub_matmul_split_ref`
+    where ``grow >= gcol``, else ``c``, as a new tensor."""
+    return torch.where(grow >= gcol, ksub_matmul_split_ref(c, x, y, x_k_major, terms), c)
+
+
 def ksub_available(c, x, y, x_k_major: bool = True) -> bool:
     """Whether :func:`ksub_matmul` (and :func:`ksub_matmul_masked`) take
-    these operands: f32 throughout. The kernels mask ragged edges
+    these operands: f32 throughout. Both kernels (K2 and its masked
+    instantiation K6, ``csrc/ksub_tf32x3.cu``) mask ragged edges
     themselves, so no shape condition applies; the device decides the
     route inside the wrapper."""
     return c.dtype == x.dtype == y.dtype == torch.float32
@@ -193,11 +203,11 @@ def ksub_matmul_masked(c, x, y, grow, gcol, x_k_major: bool = True) -> torch.Ten
     if m == 0 or n == 0 or k == 0:
         return c
     gr, gc = grow.reshape(m).contiguous(), gcol.reshape(n).contiguous()
-    lib = _build.library("ksub")
+    lib = _build.library("ksub_tf32x3")
     with torch.cuda.device(c.device):
-        rc = lib.dlaf_ksub_masked(c.data_ptr(), c.stride(0), x.data_ptr(), x.stride(0),
-                                  y.data_ptr(), y.stride(0), gr.data_ptr(), gc.data_ptr(),
-                                  m, n, k, int(x_k_major), _build.stream_of(c))
+        rc = lib.dlaf_ksub_tf32x3_masked(c.data_ptr(), c.stride(0), x.data_ptr(), x.stride(0),
+                                         y.data_ptr(), y.stride(0), gr.data_ptr(), gc.data_ptr(),
+                                         m, n, k, int(x_k_major), _build.stream_of(c))
     _build.check(rc, lib, "ksub_matmul_masked")
     ksub_matmul_masked.launches += 1
     return c

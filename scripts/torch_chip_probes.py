@@ -1,6 +1,6 @@
 """Measurements of the PyTorch/H100 port beside chip_smoke.py's checks, on one CUDA card.
 
-    python3 scripts/torch_chip_probes.py accumulation bf16_potrf profile
+    python3 scripts/torch_chip_probes.py accumulation bf16_potrf profile dist_profile
 
 - ``accumulation``: K2 (``csrc/ksub_tf32x3.cu``) as built, where each
   32-deep k step is summed on the tensor cores from zero and then added
@@ -17,6 +17,11 @@
   warm-up: the device-busy total (the kernels' and copies' own device
   time), each kernel's time and launches, and the idle share of the wall
   time of an unprofiled run of the same call.
+- ``dist_profile``: the same over one distributed ``cholesky`` on a 1x1
+  ``Grid`` at n = 32768 f32, nb = 512 (chip_smoke.py's ``dist_main``), L
+  and U, each route: besides the device-busy total, the idle share and the
+  largest device items, K6's total device time and launches (every
+  ``ksub`` kernel on this path is K6's) beside the wrapper's count.
 
 Each probe prints one JSON line; the last line is the card's name and
 power limit as nvidia-smi gives them. Runs only where a CUDA device is.
@@ -42,7 +47,8 @@ from dlaf_tpu_torch.matrix import generators as gen  # noqa: E402
 from dlaf_tpu_torch.ops import leaf  # noqa: E402
 from dlaf_tpu_torch.ops.kernels import _build  # noqa: E402
 from dlaf_tpu_torch.ops.kernels.potrf import factor_deviation, potrf_tile  # noqa: E402
-from dlaf_tpu_torch.ops.kernels.trailing import ksub_matmul, ksub_matmul_ref  # noqa: E402
+from dlaf_tpu_torch.ops.kernels.trailing import (  # noqa: E402
+    ksub_matmul, ksub_matmul_masked, ksub_matmul_ref)
 
 DEV = torch.device("cuda", 0)
 EPS32 = torch.finfo(torch.float32).eps
@@ -146,39 +152,77 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def probe_profile() -> None:
+def _set_route(route: str) -> None:
+    leaf.set_leaf_backend(None if route == "kernel" else "torch")
+    dt.set_tune_parameters(potrf_trailing_kernel=route)
+
+
+def _profiled(call) -> dict:
+    """``call`` once to warm up, once timed unprofiled, once under
+    ``torch.profiler``: wall times, the device-busy total (the kernels' and
+    copies' own device time), the idle share of the unprofiled wall time,
+    and the device items by name, largest first."""
     from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    call()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        wall_profiled = time.perf_counter() - t0
+    rows = [(e.key, _device_us(e), e.count) for e in prof.key_averages()]
+    rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
+    busy_ms = sum(r[1] for r in rows) / 1e3
+    return {"wall_ms": wall * 1e3, "wall_profiled_ms": wall_profiled * 1e3,
+            "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / (wall * 1e3), "rows": rows}
+
+
+def _top(rows, busy_ms, count=14) -> list:
+    return [{"name": r[0][:120], "ms": r[1] / 1e3, "launches": r[2], "share": r[1] / 1e3 / busy_ms}
+            for r in rows[:count]]
+
+
+def probe_profile() -> None:
     n, nb = 32768, 512
     a = gen.random_hermitian_positive_definite(torch.Generator(device=DEV).manual_seed(0), n,
                                                torch.float32)
     for route in ("kernel", "torch"):
-        leaf.set_leaf_backend(None if route == "kernel" else "torch")
-        dt.set_tune_parameters(potrf_trailing_kernel=route)
-        dt.potrf(a, uplo="U", nb=nb, clean=False)          # warm-up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        dt.potrf(a, uplo="U", nb=nb, clean=False)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            dt.potrf(a, uplo="U", nb=nb, clean=False)
-            torch.cuda.synchronize()
-            wall_profiled = time.perf_counter() - t0
-        rows = [(e.key, _device_us(e), e.count) for e in prof.key_averages()]
-        rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
-        busy_ms = sum(r[1] for r in rows) / 1e3
-        emit("profile", route=route, n=n, nb=nb, uplo="U", wall_ms=wall * 1e3,
-             wall_profiled_ms=wall_profiled * 1e3, device_busy_ms=busy_ms,
-             idle_share=1 - busy_ms / (wall * 1e3),
-             kernels=[{"name": r[0][:120], "ms": r[1] / 1e3, "launches": r[2],
-                       "share": r[1] / 1e3 / busy_ms} for r in rows[:14]])
+        _set_route(route)
+        r = _profiled(lambda: dt.potrf(a, uplo="U", nb=nb, clean=False))
+        rows = r.pop("rows")
+        emit("profile", route=route, n=n, nb=nb, uplo="U", **r,
+             kernels=_top(rows, r["device_busy_ms"]))
+    leaf.set_leaf_backend(None)
+    dt.reset_tune_parameters()
+
+
+def probe_dist_profile() -> None:
+    n, nb = 32768, 512
+    a = gen.random_hermitian_positive_definite(torch.Generator(device=DEV).manual_seed(0), n,
+                                               torch.float32)
+    dm = dt.DistMatrix.from_global(a, nb, dt.Grid((1, 1)))
+    for uplo in ("L", "U"):
+        for route in ("kernel", "torch"):
+            _set_route(route)
+            before = ksub_matmul_masked.launches
+            r = _profiled(lambda: dt.cholesky(dm, uplo=uplo))
+            rows = r.pop("rows")
+            k6 = [x for x in rows if "ksub" in x[0]]
+            emit("dist_profile", route=route, n=n, nb=nb, uplo=uplo, grid=[1, 1], **r,
+                 k6_ms=sum(x[1] for x in k6) / 1e3, k6_launches=sum(x[2] for x in k6),
+                 k6_wrapper_launches=(ksub_matmul_masked.launches - before) // 3,
+                 k6_share=sum(x[1] for x in k6) / 1e3 / r["device_busy_ms"],
+                 kernels=_top(rows, r["device_busy_ms"]))
     leaf.set_leaf_backend(None)
     dt.reset_tune_parameters()
 
 
 PROBES = {"accumulation": probe_accumulation, "bf16_potrf": probe_bf16_potrf,
-          "profile": probe_profile}
+          "profile": probe_profile, "dist_profile": probe_dist_profile}
 
 
 if __name__ == "__main__":

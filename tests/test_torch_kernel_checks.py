@@ -1,4 +1,4 @@
-"""The refusals of the K1 and K2 wrappers on a CUDA tensor, on the CPU.
+"""The refusals of the K1, K2 and K6 wrappers on a CUDA tensor, on the CPU.
 
 The device probe is faked so that every tensor looks like a CUDA tensor,
 and the kernel library cannot load (or is a stand-in that records its
@@ -136,19 +136,61 @@ def test_ksub_launches_the_tf32x3_library(fake_cuda):
     assert fake_cuda == ["ksub_tf32x3"]
 
 
-def test_ksub_masked_keeps_the_ffma_library(fake_cuda):
+@pytest.mark.parametrize("x_k_major", [False, True])
+def test_ksub_masked_launches_the_tf32x3_library(fake_cuda, x_k_major):
+    """K6 is the masked instantiation of K2's kernel, in both layouts."""
     z = torch.zeros(8, 8)
     grow = torch.arange(8, dtype=torch.int32).reshape(8, 1)
-    with pytest.raises(RuntimeError, match="cannot build ksub$"):
-        ktrail.ksub_matmul_masked(z, torch.zeros(8, 8), torch.zeros(8, 8), grow, grow.reshape(1, 8))
-    assert fake_cuda == ["ksub"]
+    with pytest.raises(RuntimeError, match="cannot build ksub_tf32x3$"):
+        ktrail.ksub_matmul_masked(z, torch.zeros(8, 8), torch.zeros(8, 8), grow,
+                                  grow.reshape(1, 8), x_k_major=x_k_major)
+    assert fake_cuda == ["ksub_tf32x3"]
 
 
 def test_ksub_signatures_registered():
     assert "dlaf_ksub_tf32x3" in _build.SIGNATURES["ksub_tf32x3"]
-    assert "dlaf_ksub" not in _build.SIGNATURES["ksub"]
+    assert "dlaf_ksub_tf32x3_masked" in _build.SIGNATURES["ksub_tf32x3"]
+    assert "ksub" not in _build.SIGNATURES           # the FFMA library is gone
     assert all(t in (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int)
                for sig in _build.SIGNATURES.values() for args in sig.values() for t in args)
+
+
+class _MaskedLib:
+    """Stand-in for the ksub_tf32x3 library: records K6's launches."""
+
+    def __init__(self):
+        self.calls = []
+
+    def dlaf_ksub_tf32x3_masked(self, c, ldc, x, ldx, y, ldy, grow, gcol, m, n, k, x_k_major,
+                                stream):
+        self.calls.append({"ld": (ldc, ldx, ldy), "mnk": (m, n, k), "x_k_major": x_k_major,
+                           "indices": (grow, gcol)})
+        return 0
+
+
+@pytest.mark.parametrize("x_k_major", [False, True])
+def test_ksub_masked_passes_views_and_indices_to_the_kernel(monkeypatch, x_k_major):
+    """What K6's launch receives from strided views and strided index
+    vectors: the views' leading dimensions, the shape and the layout; one
+    launch counted, and ``c`` not touched on the host."""
+    import contextlib
+    lib = _MaskedLib()
+    monkeypatch.setattr(_build, "on_cuda", lambda t: True)
+    monkeypatch.setattr(_build, "library", lambda name: lib)
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    c = torch.ones(12, 20)[:, 3:]                           # (12, 17), ldc 20
+    x = torch.zeros(5, 16)[:, :12] if x_k_major else torch.zeros(12, 9)[:, :5]
+    y = torch.zeros(5, 21)[:, 4:]
+    grow = torch.arange(24, dtype=torch.int32).reshape(12, 2)[:, :1]
+    gcol = torch.arange(34, dtype=torch.int32).reshape(1, 34)[:, ::2]
+    before = ktrail.ksub_matmul_masked.launches
+    assert ktrail.ksub_matmul_masked(c, x, y, grow, gcol, x_k_major=x_k_major) is c
+    assert ktrail.ksub_matmul_masked.launches == before + 1
+    (call,) = lib.calls
+    assert call["ld"] == (20, x.stride(0), 21)
+    assert call["mnk"] == (12, 17, 5) and call["x_k_major"] == int(x_k_major)
+    assert bool((c == 1).all())
 
 
 # -------------------------------------------------------------- spawn_grid
