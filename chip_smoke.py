@@ -30,16 +30,19 @@ eigenvalues to ``torch.linalg.eigvalsh`` in f64 (a yardstick the port never
 calls), each bound beside a planted fault; complex64 ``eigh`` at n = 4096;
 and the eigensolver miniapp with ``--check`` in s and d.
 
-The ``eigh_large`` slice: K4 and K5 (the streaming stage-4 apply) against
-their plain versions on random WY blocks (the main path's band and width,
-ragged widths, phantom groups, nact = 0), each beside a planted fault and
-with bit-identical repeats; then ``dlaf_tpu_torch.eigh_large`` at
+The ``eigh_large`` slice: K4 and K5 (the streaming stage-4 apply, 3xTF32
+on the tensor cores) against their plain versions on random WY blocks (the
+main path's band and width, ragged widths, phantom groups, nact = 0), each
+beside a planted fault, the main path's width also beside the one- and
+two-term TF32 splits, and with bit-identical repeats; then
+``dlaf_tpu_torch.eigh_large`` at
 n = 32768 f32, band 128 (the ``heev_32768`` configuration of
 ``scripts/bench_sections.py``), timed whole and by stage with each stage's
 peak memory, held to the bench's probe gates and a trace gate, each beside
 a planted fault; its stage 4 through K5 against the cooked cuBLAS route and
-against K4/K5's plain versions on the same record, K5's heaviest step and
-one K4 group on that record held to their plain versions and timed; and
+against K4/K5's plain versions on the same record, K5's heaviest step (also
+beside the one- and two-term TF32 splits) and one K4 group on that record
+held to their plain versions and timed; and
 ``eigh_large`` against ``dt.eigh`` at n = 9984 (K4 and K5; the peeled K4
 call with the most chases held to its plain version on the buffer it was
 given), 2048 in three re-chased chunks and complex64 4096.
@@ -116,7 +119,8 @@ from dlaf_tpu_torch.ops.kernels.trailing import (  # noqa: E402
     ksub_matmul_plan, ksub_matmul_ref, ksub_matmul_split_ref)
 from dlaf_tpu_torch.algos.eigensolver import bt as btm  # noqa: E402
 from dlaf_tpu_torch.ops.kernels.bt_apply import (  # noqa: E402
-    bt_apply_fused, bt_apply_fused_ref, bt_apply_group, bt_apply_group_ref)
+    bt_apply_fused, bt_apply_fused_ref, bt_apply_fused_split_ref, bt_apply_group,
+    bt_apply_group_ref, bt_apply_group_split_ref)
 from dlaf_tpu_torch.types import eps  # noqa: E402
 
 DEV = torch.device("cuda", 0)
@@ -218,9 +222,10 @@ K45_CASES = [("K4", 128, 32768, 10, (0, 8), None), ("K4", 128, 1000, 9, (2, 5), 
              ("K5", 128, 2048, 8, (0, 2, 4), 2), ("K4", 64, 300, 12, (1, 9), None),
              ("K5", 64, 300, 12, (0, 4, 5), 4)]
 # K4/K5 against the plain version, max|got - want| / (eps32 max|E|). The
-# card's readings: 0 (bit-equal to cuBLAS's order of sums) to 16.5 over the
-# cases, 0 on the real records' calls; one chase's V2 scaled by 1.1 reads
-# 1.9e6 or more
+# card's readings of the 3xTF32 kernels: 12-45 over the cases, 5.0 on the
+# real record's K4 group and K5 step; their one- and two-term TF32 splits
+# read 1.5e4-5.6e4 on the cases and 4.5e3-5.3e3 on the real step, and one
+# chase's V2 scaled by 1.1 reads 1.9e6 or more
 K45_BOUND = 64.0
 K45_REPLACES = {"bt_apply_group": "dlaf_tpu/ops/pallas/bt_apply.py:187",
                 "bt_apply_fused": "dlaf_tpu/ops/pallas/bt_apply.py:375"}
@@ -231,16 +236,16 @@ N_LARGE, B_LARGE, LARGE_SEED = 32768, 128, 13
 # V diag(w) u| in units of n eps32 max(1, max|A|)) and the trace gate
 # |sum(w) - tr(A)| in units of n eps32 max|A|. The bench's own gates are
 # 500 and 1000; the bounds here are set from the card's readings: sound
-# runs read orth 1.3e-4, res 0.0099, trace 75.7; a dropped stage-2 tau reads
+# runs read orth 1.3e-4 to 2.8e-4, res 0.0099, trace 75.7; a dropped stage-2 tau reads
 # res 45, a stage-1 tau scaled by 1.1 orth 0.10 (and trace only 97: the
 # trace barely sees a non-unitary reflector), so the trace gate is shown
 # one tridiagonal diagonal entry off by 2 instead.
 LARGE_BOUNDS = {"orth": 0.01, "res": 0.5, "trace": 150.0}
 # the whole stage 4 through K4/K5 against the cooked cuBLAS route and
 # against K4/K5's plain versions on the same record, max|diff| / (eps32
-# max|E|): the card reads 7.5 and 0 at n = 32768 (32,896 chases); a dropped
-# reflector moves E by O(1) (the res gate's planted fault reads 45 n eps
-# there)
+# max|E|): the card reads 18.0 and 18.1 at n = 32768 (32,896 chases) through
+# the 3xTF32 kernels; a dropped reflector moves E by O(1) (the res gate's
+# planted fault reads 45 n eps there)
 STAGE4_BOUND = 64.0
 # eigh_large against dt.eigh: (n, rec_chunks, dtype); n = 9984 runs 6
 # groups through K4 and 72 in 9 K5 steps, n = 2048 in three chunks
@@ -1001,12 +1006,23 @@ def _k45_run(kind, ep2, v, v2, args, b):
     return got, want
 
 
+def _split_faults(kind, ep2, v, v2, args, b, want, scale) -> dict:
+    """Planted faults: the kernel's three TF32 passes cut to one and to two
+    (K4/K5's arithmetic emulated on the card), each against the plain
+    version ``want``, in units of eps32 max|E|; the check must reject both."""
+    split = bt_apply_group_split_ref if kind == "K4" else bt_apply_fused_split_ref
+    return {f"planted_{t}_term_err_eps":
+            _err_eps(split(ep2.clone(), v, v2, *args, b, terms=t), want, scale) for t in (1, 2)}
+
+
 def phase_k45() -> None:
     """K4 and K5 against their plain versions on the card: the main path's
     width and band, ragged nev, base_blk > 0 with ncvalid < ncmax, K5 with
     k in {2, 8}, phantom groups (nact < k) and nact = 0; each check beside a
     planted fault (one chase's V2 scaled by 1.1) and a bit-identical
-    repeat. Errors are max|got - want| / max|E| in units of eps32."""
+    repeat; the main path's width (nev = 32768) also beside the one- and
+    two-term TF32 splits. Errors are max|got - want| / max|E| in units of
+    eps32."""
     g = torch.Generator(device=DEV).manual_seed(45)
     worst = {"K4": 0.0, "K5": 0.0}
     for kind, b, nev, nblk, args, k in K45_CASES:
@@ -1044,6 +1060,9 @@ def phase_k45() -> None:
                 bad2[v0p // 2, 0] *= 1.1       # a chase of the bottom group
             bad = _k45_run(kind, ep2, v, bad2, args, b)[0]
             r["planted_fault_err_eps"] = float((bad - want).abs().max()) / (EPS32 * scale)
+            del bad
+        if nev == N_LARGE:
+            r.update(_split_faults(kind, ep2, v, v2, args, b, want, scale))
         emit("k45", **r)
         what = f"{kind} b={b} nev={nev} args={args}"
         require(r["bit_identical"] and r["untouched_equal"], f"{what}: {r}")
@@ -1054,6 +1073,9 @@ def phase_k45() -> None:
                     f"{what}: the check passes a planted fault ({r})")
         else:
             require(torch.equal(got, ep2), f"{what}: nact = 0 leaves E as it was")
+        if nev == N_LARGE:
+            require(min(r["planted_1_term_err_eps"], r["planted_2_term_err_eps"]) > K45_BOUND,
+                    f"{what}: the check passes a one- or two-term TF32 split ({r})")
         worst[kind] = max(worst[kind], err)
         del ep2, got, want, again, v, v2
     for name, kind in (("bt_apply_group", "K4"), ("bt_apply_fused", "K5")):
@@ -1185,19 +1207,23 @@ def _plain_stage4():
         yield
 
 
-def _bt_bound(slabs, nev, b, blocks):
-    """(bound ms, bound_by): the flops the chases need, 2 nev per nonzero of
-    each chase's V and V2 (V, the staggered WY trapezoid, has b nonzero rows
-    of 2b in each column, V2 = V T^H about 1.5 b^2 nonzeros: 5 b^2 nev flops
-    a chase, where a dense 2b x b pair would count 8), over the f32 peak; or
-    the touched E blocks read and written once plus those nonzeros read once,
-    over HBM bandwidth. ``slabs``: the (V, V2) pairs of the chases run."""
+def _bt_bound(slabs, nev, b, blocks) -> dict:
+    """K4/K5's bound: the flops the chases need, 2 nev per nonzero of each
+    chase's V and V2 (V, the staggered WY trapezoid, has b nonzero rows of
+    2b in each column, V2 = V T^H about 1.5 b^2 nonzeros: 5 b^2 nev flops a
+    chase, where a dense 2b x b pair would count 8), run as the kernels run
+    them, in three TF32 passes (6 flops a needed product term) at the
+    tensor cores' TF32 peak; or the touched E blocks read and written once
+    plus those nonzeros read once, over HBM bandwidth. ``bound_ms`` is the
+    larger; the f32 FFMA bound of the same flops is kept beside it.
+    ``slabs``: the (V, V2) pairs of the chases run."""
     nnz = sum(int(torch.count_nonzero(v)) + int(torch.count_nonzero(v2)) for v, v2 in slabs)
     flops = 2.0 * nev * nnz
     nbytes = 4.0 * (2 * blocks * b * nev + nnz)
-    ms = {"operations": flops / PEAK_F32 * 1e3, "bytes": nbytes / PEAK_BYTES * 1e3}
+    ms = {"operations": 3 * flops / PEAK_TF32 * 1e3, "bytes": nbytes / PEAK_BYTES * 1e3}
     by = max(ms, key=ms.get)
-    return ms[by], by, flops
+    return {"bound_ms": ms[by], "bound_by": by, "bound_tf32x3_ms": ms[by],
+            "bound_f32_ffma_ms": max(flops / PEAK_F32 * 1e3, ms["bytes"]), "flops": flops}
 
 
 def _err_eps(got, want, scale) -> float:
@@ -1253,6 +1279,8 @@ def _stage4_and_kernel_times(store, b) -> dict:
     got = bt_apply_fused(ep2.clone(), *heavy["args"])
     want = bt_apply_fused_ref(ep2.clone(), *heavy["args"])
     r["k5_real_step_err_eps"] = _err_eps(got, want, scale)
+    r["k5_real_step_split"] = _split_faults("K5", ep2, v, v2, (beta, nact, v0p, k), b, want,
+                                            scale)
     del got, want
     x = ep2.clone()
     y = _padded_copy(ep2, n, b)
@@ -1263,8 +1291,8 @@ def _stage4_and_kernel_times(store, b) -> dict:
                "cooked_ms": cuda_ms(lambda: bt_band_to_tridiag(
                    y, vs[sweeps], taus[sweeps], b, group_size=b, sweep_lo=sweeps.start,
                    prepadded=True), 1)}
-    r["k5"]["bound_ms"], r["k5"]["bound_by"], r["k5"]["flops"] = _bt_bound(
-        [(v[:v0p + i, i], v2[:v0p + i, i]) for i in range(nact)], n, b, v0p + nact)
+    r["k5"].update(_bt_bound([(v[:v0p + i, i], v2[:v0p + i, i]) for i in range(nact)], n, b,
+                             v0p + nact))
     del v, v2, heavy
     # K4: the group with the most chases (sweeps 0..b-1, 256 chases)
     nc = vs.shape[1]
@@ -1278,8 +1306,7 @@ def _stage4_and_kernel_times(store, b) -> dict:
                "plain_ms": cuda_ms(lambda: bt_apply_group_ref(x, v, v2, 0, nc, b), 1),
                "cooked_ms": cuda_ms(lambda: bt_band_to_tridiag(
                    y, vs[:b], taus[:b], b, group_size=b, prepadded=True), 1)}
-    r["k4"]["bound_ms"], r["k4"]["bound_by"], r["k4"]["flops"] = _bt_bound(
-        [(v, v2)], n, b, nc + 1)
+    r["k4"].update(_bt_bound([(v, v2)], n, b, nc + 1))
     return r
 
 
@@ -1350,6 +1377,9 @@ def phase_eigh_large_main() -> None:
             f"stage 4 through K5 against the plain versions: {st4['stage4_kernel_vs_plain_eps']}")
     for key in ("k5_real_step_err_eps", "k4_real_group_err_eps"):
         require(st4[key] <= K45_BOUND, f"on the real n = {n} record, {key}: {st4[key]}")
+    require(min(st4["k5_real_step_split"].values()) > K45_BOUND,
+            f"on the real n = {n} record, the K5 check passes a one- or two-term TF32 split "
+            f"({st4['k5_real_step_split']})")
     for name, key in (("bt_apply_group", "k4"), ("bt_apply_fused", "k5")):
         t = st4[key]
         # the library route: the faster of two cuBLAS routes of the same
@@ -1358,7 +1388,8 @@ def phase_eigh_large_main() -> None:
         lib = min(("plain", "cooked"), key=lambda r: t[f"{r}_ms"])
         KERNELS[name].update(ms=t["ms"], plain_ms=t["plain_ms"], library_ms=t[f"{lib}_ms"],
                              cooked_ms=t["cooked_ms"], bound_ms=t["bound_ms"],
-                             bound_by=t["bound_by"], timed_shape=t["shape"],
+                             bound_by=t["bound_by"], bound_tf32x3_ms=t["bound_tf32x3_ms"],
+                             bound_f32_ffma_ms=t["bound_f32_ffma_ms"], timed_shape=t["shape"],
                              library={"plain": "two torch.matmul per chase (cuBLAS)",
                                       "cooked": "the cooked grouped apply, three "
                                                 "torch.matmul per chase (cuBLAS)"}[lib])

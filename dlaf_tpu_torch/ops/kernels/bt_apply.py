@@ -21,9 +21,16 @@ groups i >= ``nact`` are phantoms and are skipped. K4 is K5 with k = 1.
 The CUDA source is ``dlaf_tpu_torch/csrc/bt_apply.cu``; its header says
 what bounds the kernels and how the design answers. Every column of E is
 updated on its own, so a block of the kernel owns 32 columns and walks the
-whole chase sequence alone, with the (k + 2) blocks it needs in shared
+whole chase sequence alone, with the (k + 1) blocks it needs in shared
 memory and V, V2 streamed through a ring of chunks there. That
-shared-memory plan is :func:`fused_groups`'s model.
+shared-memory plan is :func:`fused_groups`'s model. The products run on the
+tensor cores in three TF32 passes (hi*hi + lo*hi + hi*lo of each f32
+operand's two-term TF32 split, as K2's); :func:`bt_apply_group_split_ref`
+and :func:`bt_apply_fused_split_ref` emulate that arithmetic in plain
+PyTorch, for the checks. The kernel multiplies only the parts of V and V2
+that the staggered WY shape can make nonzero (:func:`bt_apply_skip_rule`,
+its twin): every slab that ``bt._group_vt_all`` makes is zero elsewhere,
+and the kernel takes it to be.
 
 :func:`bt_apply_group` and :func:`bt_apply_fused` dispatch on the tensor's
 device: a CPU tensor takes the plain version (:func:`bt_apply_group_ref`,
@@ -37,31 +44,35 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .trailing import tf32_split_matmul
 
-# csrc/bt_apply.cu: kCols columns of E per block, 2b threads per block,
-# kStages chunks of b^2/4 floats in the V/V2 ring
+# csrc/bt_apply.cu: kCols columns of E per block, kStages chunks of
+# CHUNK_ROWS rows of V (b floats each; of V2^T, CHUNK_ROWS / 2 rows of 2b)
+# in the V/V2 ring
 COLS = 32
 STAGES = 3
+CHUNK_ROWS = 32
 SMEM_LIMIT = 232448          # bytes of shared memory a block may use (H100)
-MIN_BAND, MAX_BAND = 32, 256
+MIN_BAND, MAX_BAND = 32, 192
 K_MAX = 8                    # the largest fusion factor fused_groups offers
 
 
 def _smem_bytes(k: int, b: int) -> int:
     """Shared memory of one block of the kernel at fusion factor k: a
-    carousel of k + 2 E blocks (b x COLS f32: the nact + 1 blocks a step
-    touches and the next step's fresh block), Y = V^T W (b x COLS) and the
-    ring through which V and V2 stream (STAGES chunks of b^2/4)."""
-    return 4 * ((k + 3) * b * COLS + STAGES * (b * b // 4))
+    carousel of k + 1 E blocks (b x COLS f32: the nact + 1 blocks a step
+    touches; the next step's fresh block takes the finished one's slot),
+    Y = V^T W kept split as TF32 (hi, lo) pairs (the room of two blocks)
+    and the ring through which V and V2 stream (STAGES chunks of
+    CHUNK_ROWS x b)."""
+    return 4 * ((k + 3) * b * COLS + STAGES * CHUNK_ROWS * b)
 
 
 def bt_apply_feasible(b: int, dtype) -> bool:
     """Whether the kernels take band ``b`` in ``dtype``: f32 only (the TPU
-    kernels are f32 only too), b a multiple of 32 (2b threads copy a
-    b^2/4 chunk in 16-byte pieces), at most 256 (512 threads a block, so
-    that a thread may hold 128 registers) and the k = 1 shared-memory plan
-    within 227 KB, which holds up to b = 192. No condition on nev: the last
-    column tile is masked."""
+    kernels are f32 only too), b a multiple of 32 (the b/16 tiles of 16
+    rows pair up), at most 192 (2b threads a block: at 384 a thread may
+    hold 168 registers) and the k = 1 shared-memory plan within 227 KB. No
+    condition on nev: the last column tile is masked."""
     return (dtype == torch.float32 and b % 32 == 0 and MIN_BAND <= b <= MAX_BAND
             and _smem_bytes(1, b) <= SMEM_LIMIT)
 
@@ -85,33 +96,100 @@ def _blocks(ep2: torch.Tensor, b: int) -> torch.Tensor:
     return ep2.view(nrows // b, b, nev)
 
 
-def _chase(e3, up: int, v, v2) -> None:
+def _chase(e3, up: int, v, v2, terms) -> None:
     w = e3[up:up + 2].view(-1, e3.shape[2])            # (2b, nev), in place
-    w -= v2 @ (v.T @ w)
+    if terms is None:
+        w -= v2 @ (v.T @ w)
+    else:
+        w -= tf32_split_matmul(v2, tf32_split_matmul(v.T, w, terms), terms)
 
 
-def bt_apply_group_ref(ep2, v, v2, base_blk: int, ncvalid: int, b: int):
-    """Plain version of K4: chases c = 0..ncvalid-1 of one group, each the
-    two-block update on blocks (base_blk + c, base_blk + c + 1), in place.
-    v, v2: (>= ncvalid, 2b, b)."""
+def _group(ep2, v, v2, base_blk, ncvalid, b, terms):
     e3 = _blocks(ep2, b)
     for c in range(int(ncvalid)):
-        _chase(e3, int(base_blk) + c, v[c], v2[c])
+        _chase(e3, int(base_blk) + c, v[c], v2[c], terms)
     return ep2
 
 
-def bt_apply_fused_ref(ep2, v, v2, beta: int, nact: int, v0p: int, k: int, b: int):
-    """Plain version of K5: the wavefront of k staggered groups, in place.
-    v, v2: (>= nsteps, k, 2b, b); v[t, i] is chase t of group i, i = 0 the
-    bottom (earliest-applied) valid group; groups i >= nact are skipped."""
+def _fused(ep2, v, v2, beta, nact, v0p, b, terms):
     e3 = _blocks(ep2, b)
     beta, nact, v0p = int(beta), int(nact), int(v0p)
     nsteps = v0p + nact - 1 if nact > 0 else 0
     for t in range(nsteps):
         for i in range(nact):
             if t < v0p + i:
-                _chase(e3, beta + nact - 1 - i + t, v[t, i], v2[t, i])
+                _chase(e3, beta + nact - 1 - i + t, v[t, i], v2[t, i], terms)
     return ep2
+
+
+def bt_apply_group_ref(ep2, v, v2, base_blk: int, ncvalid: int, b: int):
+    """Plain version of K4: chases c = 0..ncvalid-1 of one group, each the
+    two-block update on blocks (base_blk + c, base_blk + c + 1), in place.
+    v, v2: (>= ncvalid, 2b, b)."""
+    return _group(ep2, v, v2, base_blk, ncvalid, b, None)
+
+
+def bt_apply_fused_ref(ep2, v, v2, beta: int, nact: int, v0p: int, k: int, b: int):
+    """Plain version of K5: the wavefront of k staggered groups, in place.
+    v, v2: (>= nsteps, k, 2b, b); v[t, i] is chase t of group i, i = 0 the
+    bottom (earliest-applied) valid group; groups i >= nact are skipped."""
+    return _fused(ep2, v, v2, beta, nact, v0p, b, None)
+
+
+def bt_apply_group_split_ref(ep2, v, v2, base_blk: int, ncvalid: int, b: int,
+                             terms: int = 3):
+    """K4's arithmetic in plain PyTorch, in place: :func:`bt_apply_group_ref`
+    with both products of each chase as
+    :func:`~dlaf_tpu_torch.ops.kernels.trailing.tf32_split_matmul` computes
+    them (``terms`` = 3: the kernel's three TF32 passes; 1 and 2 are the
+    planted faults the checks must reject). No route runs it."""
+    return _group(ep2, v, v2, base_blk, ncvalid, b, terms)
+
+
+def bt_apply_fused_split_ref(ep2, v, v2, beta: int, nact: int, v0p: int, k: int, b: int,
+                             terms: int = 3):
+    """K5's arithmetic in plain PyTorch, in place: :func:`bt_apply_fused_ref`
+    with the products split as in :func:`bt_apply_group_split_ref`."""
+    return _fused(ep2, v, v2, beta, nact, v0p, b, terms)
+
+
+def bt_apply_skip_rule(b: int) -> dict:
+    """The kernel's zero rule (``csrc/bt_apply.cu`` ``p1_lo``/``p1_hi``,
+    ``p1_cols``, ``p2_count``, ``p2_rows``) as boolean masks over one
+    chase's V and V2, each (2b, b): ``"v_used"``/``"v2_used"``, the entries
+    its tensor-core steps multiply, and ``"v_loaded"``/``"v2_loaded"``, the
+    entries its chunks copy to shared memory. An entry outside the used
+    mask is never multiplied: the kernel takes it as zero. Column j of V is
+    nonzero only in rows b-1-j .. 2b-2-j, column j of V2 only in rows
+    0 .. 2b-2-j; the rule is a formula in b, on tiles of 16 rows or
+    columns and k8 steps of 8:
+
+    - Y = V^T W: warp w (rows 16w .. 16w+15 of Y, columns of V) runs the
+      k8 steps s (rows 8s .. 8s+7 of V) in [b/8 - 2 - 2w, b/4 - 1 - 2w];
+      V's chunk p (rows 32p .. 32p+31) loads the columns of the warps with
+      a step in it;
+    - W -= V2 Y: tile T (rows 16T .. 16T+15 of V2) runs the k8 steps s
+      (columns 8s .. 8s+7 of V2) with 16T + 8s <= 2b - 2; V2's chunk q
+      (columns 16q .. 16q+15) loads rows 0 .. 2b - 16q - 1, the tiles with
+      a step in it.
+    """
+    nw = b // 16
+    masks = {name: torch.zeros((2 * b, b), dtype=torch.bool)
+             for name in ("v_used", "v_loaded", "v2_used", "v2_loaded")}
+    for w in range(nw):
+        lo, hi = b // 8 - 2 - 2 * w, b // 4 - 1 - 2 * w
+        masks["v_used"][8 * lo:8 * hi + 8, 16 * w:16 * w + 16] = True
+    for p in range(2 * b // CHUNK_ROWS):
+        x, y = b // 8 - 5 - 4 * p, b // 4 - 1 - 4 * p
+        c0, c1 = 16 * ((x + 1) // 2 if x > 0 else 0), 16 * (min(nw - 1, y // 2) + 1)
+        masks["v_loaded"][CHUNK_ROWS * p:CHUNK_ROWS * (p + 1), c0:c1] = True
+    for tile in range(2 * nw):
+        count = min(b // 8, (2 * b - 2 - 16 * tile) // 8 + 1)
+        masks["v2_used"][16 * tile:16 * tile + 16, :8 * count] = True
+    half = CHUNK_ROWS // 2
+    for q in range(b // half):
+        masks["v2_loaded"][:2 * b - 16 * q, half * q:half * (q + 1)] = True
+    return masks
 
 
 def _check_args(ep2, v, v2, b: int, want: tuple, nsteps: int, hi_blk: int, what: str):
@@ -135,8 +213,8 @@ def _check_args(ep2, v, v2, b: int, want: tuple, nsteps: int, hi_blk: int, what:
 
 
 def _launch(fn: str, ep2, v, v2, b: int, ints, what: str) -> None:
-    # the kernel copies V in 16-byte pieces and reads V2 transposed, so that
-    # a thread's rows are contiguous
+    # the kernel copies V and V2 in 16-byte pieces, V2 transposed, so that a
+    # chunk of V2^T holds one 16-deep stretch of the second product's k
     vc = v.contiguous() if v.data_ptr() % 16 == 0 else v.clone()
     v2t = v2.transpose(-1, -2).contiguous()
     lib = _build.library("bt_apply")
@@ -150,8 +228,10 @@ def _launch(fn: str, ep2, v, v2, b: int, ints, what: str) -> None:
 def bt_apply_group(ep2, v, v2, base_blk: int, ncvalid: int, b: int):
     """K4: one group's chases on the shifted buffer ``ep2`` (nblk*b, nev),
     in place; returns ``ep2``. v, v2: (>= ncvalid, 2b, b) f32, v's WY
-    trapezoids zero-padded to 2b rows, v2 = V T^H. Blocks base_blk ..
-    base_blk + ncvalid must lie in the buffer."""
+    trapezoids zero-padded to 2b rows, v2 = V T^H, as ``bt._group_vt_all``
+    makes them; on the card, entries outside :func:`bt_apply_skip_rule`'s
+    used masks are taken as zero. Blocks base_blk .. base_blk + ncvalid
+    must lie in the buffer."""
     base_blk, ncvalid = int(base_blk), int(ncvalid)
     if not _build.on_cuda(ep2):
         return bt_apply_group_ref(ep2, v, v2, base_blk, ncvalid, b)
@@ -172,8 +252,9 @@ def bt_apply_fused(ep2, v, v2, beta: int, nact: int, v0p: int, k: int, b: int):
     """K5: k staggered groups' chases in one pass over the shifted buffer,
     in place; returns ``ep2``. v, v2: (>= nsteps, k, 2b, b) f32 with
     nsteps = v0p + nact - 1 (0 when nact = 0); group i has v0p + i chases;
-    phantom groups i >= nact are never read. Blocks beta .. beta + nsteps
-    must lie in the buffer."""
+    phantom groups i >= nact are never read; each chase's slabs as in
+    :func:`bt_apply_group`. Blocks beta .. beta + nsteps must lie in the
+    buffer."""
     beta, nact, v0p, k = int(beta), int(nact), int(v0p), int(k)
     if not _build.on_cuda(ep2):
         return bt_apply_fused_ref(ep2, v, v2, beta, nact, v0p, k, b)

@@ -20,7 +20,7 @@ inside the mask.
 device: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises. :func:`ksub_matmul_split_ref` and
 :func:`ksub_matmul_masked_split_ref` emulate the kernels' split in plain
-PyTorch, for the checks; no route runs them.
+PyTorch (:func:`tf32_split_matmul`), for the checks; no route runs them.
 """
 from __future__ import annotations
 
@@ -48,23 +48,28 @@ def tf32_round(t: torch.Tensor) -> torch.Tensor:
     return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
-def ksub_matmul_split_ref(c, x, y, x_k_major: bool = True, terms: int = 3) -> torch.Tensor:
-    """K2's arithmetic in plain PyTorch, as a new tensor: ``c - op(x) @ y``
-    with each f32 operand split as hi = tf32(v), lo = tf32(v - hi) and the
-    product summed as hi*hi, + lo*hi (``terms`` >= 2), + hi*lo (``terms``
-    = 3). Products of TF32 values are exact in f32, so an f32 matmul (TF32
-    off) of the parts is the tensor cores' arithmetic but for the order and
+def tf32_split_matmul(a, b, terms: int = 3) -> torch.Tensor:
+    """``a @ b`` as the 3xTF32 kernels compute it, in plain PyTorch: each
+    f32 operand split as hi = tf32(v), lo = tf32(v - hi) and the product
+    summed as hi*hi, + lo*hi (``terms`` >= 2), + hi*lo (``terms`` = 3).
+    Products of TF32 values are exact in f32, so an f32 matmul (TF32 off)
+    of the parts is the tensor cores' arithmetic but for the order and
     rounding of the sums. ``terms=1`` is one plain TF32 pass."""
     if terms not in (1, 2, 3):
         raise ValueError(f"terms must be 1, 2 or 3, got {terms}")
-    xa = _op(x, x_k_major)
-    xh, yh = tf32_round(xa), tf32_round(y)
-    prod = xh @ yh
+    ah, bh = tf32_round(a), tf32_round(b)
+    prod = ah @ bh
     if terms >= 2:
-        prod = prod + tf32_round(xa - xh) @ yh
+        prod = prod + tf32_round(a - ah) @ bh
     if terms == 3:
-        prod = prod + xh @ tf32_round(y - yh)
-    return c - prod
+        prod = prod + ah @ tf32_round(b - bh)
+    return prod
+
+
+def ksub_matmul_split_ref(c, x, y, x_k_major: bool = True, terms: int = 3) -> torch.Tensor:
+    """K2's arithmetic in plain PyTorch, as a new tensor: ``c - op(x) @ y``
+    with the product as :func:`tf32_split_matmul` computes it."""
+    return c - tf32_split_matmul(_op(x, x_k_major), y, terms)
 
 
 def ksub_matmul_masked_ref(c, x, y, grow, gcol, x_k_major: bool = True) -> torch.Tensor:

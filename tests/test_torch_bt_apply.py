@@ -124,13 +124,13 @@ def test_fused_plain_is_k4_at_k1():
 
 
 def test_fused_groups_and_feasibility_follow_the_shared_memory_plan():
-    # (k + 3) blocks of b x 32 f32 and a ring of 3 chunks of b^2/4 f32
-    # within 227 KB a block
-    assert kbt._smem_bytes(8, 128) == (11 * 128 * 32 + 3 * 4096) * 4 <= kbt.SMEM_LIMIT
+    # k + 1 E blocks of b x 32 f32, Y split (two blocks' room) and a ring
+    # of 3 chunks of 32 x b f32 within 227 KB a block
+    assert kbt._smem_bytes(8, 128) == (11 * 128 * 32 + 3 * 32 * 128) * 4 <= kbt.SMEM_LIMIT
     assert kbt.fused_groups(32768, 128) == 8
     assert kbt.fused_groups(100, 128) == 8          # nev does not enter
-    assert kbt.fused_groups(32768, 160) == 4        # 7 blocks of 20 KB fit, 11 do not
-    assert kbt.fused_groups(32768, 192) == 1
+    assert kbt.fused_groups(32768, 160) == 4        # 7 blocks of 20 KB and the ring fit, 11 do not
+    assert kbt.fused_groups(32768, 192) == 2        # 5 blocks of 24 KB and the ring fit
     assert kbt.fused_groups(32768, 128, k_max=2) == 2
     assert kbt.fused_groups(32768, 32) == 8
     for b in (32, 64, 128, 192):
@@ -356,13 +356,16 @@ def _need_cuda():
 
 @pytest.mark.parametrize("k,nact", [(1, 1), (8, 8), (8, 5), (2, 0)])
 def test_bt_apply_kernels_cuda(k, nact):
+    """The kernels against their plain versions on random slabs of the WY
+    shape (the kernels take the entries outside it as zero)."""
     _need_cuda()
     b, nev, beta, v0p = 128, 1000, 1, 4
     nsteps = v0p + nact - 1 if nact else 0
     g = torch.Generator(device="cuda").manual_seed(k + nact)
     ep = torch.randn(((beta + nsteps + 2) * b, nev), device="cuda", generator=g)
+    rule = kbt.bt_apply_skip_rule(b)
     v, v2 = (torch.randn((nsteps + 1, k, 2 * b, b), device="cuda", generator=g) / 16
-             for _ in range(2))
+             * rule[name].to("cuda") for name in ("v_used", "v2_used"))
     want = kbt.bt_apply_fused_ref(ep.clone(), v, v2, beta, nact, v0p, k, b)
     if k == 1:
         got = kbt.bt_apply_group(ep.clone(), v[:, 0], v2[:, 0], beta, v0p, b)
