@@ -16,7 +16,9 @@ route's, entry by entry. Each factor check is also shown a planted fault
 ``potrf_info`` on a matrix that is not positive definite.
 
 The eigensolver slice: K3 (stage-2 bulge chasing) against its plain
-version on f32 and complex64 bands, ragged and sweep-chunked, on the bands
+version on f32 and complex64 bands, ragged and sweep-chunked, each of its
+two instances (the chase's window resident in shared memory, or streamed
+from L2) in both dtypes, on the bands
 the main path hands it (n = 8192 f32 and 4096 complex64), and on a band
 whose lanes outnumber the blocks co-resident on the card, beside planted
 faults (one chase's update skipped) and with bit-identical repeats (the
@@ -113,7 +115,8 @@ from dlaf_tpu_torch.ops.kernels.potrf import (  # noqa: E402
     NB_MAX, factor_deviation, potrf_tile, potrf_tile_plan, potrf_tile_ref)
 from dlaf_tpu_torch.ops.householder import householder_vector  # noqa: E402
 from dlaf_tpu_torch.ops.kernels.band2tridiag import (  # noqa: E402
-    band_to_tridiag_strips_kernel, band_to_tridiag_strips_ref, chase_plan)
+    band_to_tridiag_strips_kernel, band_to_tridiag_strips_ref, chase_instance, chase_plan,
+    resident_smem_bytes, wavefront_steps)
 from dlaf_tpu_torch.ops.kernels.trailing import (  # noqa: E402
     ksub_matmul, ksub_matmul_masked, ksub_matmul_masked_ref, ksub_matmul_masked_split_ref,
     ksub_matmul_plan, ksub_matmul_ref, ksub_matmul_split_ref)
@@ -165,14 +168,17 @@ PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 PEAK_TF32 = 495e12
 # K3 cases on random bands: (n, b, dtype, sweep_lo, sweep_chunk); the main
-# path's band width, a narrow band, b > 128, a ragged n, and a
-# sweep-chunked record. Then K3 on the main path's own inputs (the bands
+# path's band width, a narrow band, b > 128, a ragged n, a sweep-chunked
+# record, and complex64 at b = 64, so that each instance of the kernel
+# (resident: the window in shared memory; streamed: in L2) meets each
+# dtype. Then K3 on the main path's own inputs (the bands
 # stage 1 hands it in eigh_main and eigh_c64, K3_MAIN), and on a narrow band
 # long enough that its lanes outnumber the blocks co-resident on the card,
 # so that a block takes several lanes per wavefront step (K3_MULTI_B).
 K3_CASES = [(1024, 128, torch.float32, 0, None), (1024, 128, torch.complex64, 0, None),
             (300, 16, torch.float32, 0, None), (200, 160, torch.float32, 0, None),
-            (777, 32, torch.float32, 0, None), (1024, 128, torch.float32, 200, 128)]
+            (777, 32, torch.float32, 0, None), (1024, 128, torch.float32, 200, 128),
+            (512, 64, torch.complex64, 0, None)]
 K3_MULTI_B = 8
 K3_PLAIN_TIMED = (1024, 128)    # the sequential plain version is timed where it is affordable
 K3_PLANTED = (300, 16)          # the small case a planted fault is shown on
@@ -202,10 +208,10 @@ K3_SEQ_MAX = 1024
 #    by only a few times their f32 rounding noise, and eig and res are the
 #    checks that reject it;
 #  - a sweep-chunked record bit-equal to the same rows of K3's full record.
-# The card's readings: sound cases read eig 0.61-14.4 (0.82-1.05 times the
-# plain version's), res 0.96-5.8 (0.71-1.15 times) and rel 0.08-7.5 (7.5
-# where the cap binds: n = 4754, b = 8, where the plain f32 run lies 215
-# n eps32 max(1, max|A|) from f64); a skipped chase update reads eig 6195 at n = 8192 (4800
+# The card's readings: sound cases read eig 0.61-21.6 (0.72-1.25 times the
+# plain version's), res 0.96-6.2 (0.71-1.33 times) and rel 0.08-7.5 (the
+# highest where the cap binds: n = 4754, b = 8, where the plain f32 run lies
+# 215 n eps32 max(1, max|A|) from f64); a skipped chase update reads eig 6195 at n = 8192 (4800
 # times the plain version's) and 9.0e4 at n = 300, a lost tau res 5.1e5 and
 # 1.3e6.
 K3_REL = 16.0
@@ -653,7 +659,7 @@ def _k3_bound_ms(n, b, dtype) -> tuple[float, str, dict]:
     ms = {"operations": flops / PEAK_F32 * 1e3, "bytes": nbytes / PEAK_BYTES * 1e3}
     by = max(ms, key=ms.get)
     return ms[by], by, {"chases": chases, "flops": flops, "bytes": nbytes,
-                        "wavefront_steps": 3 * (n - 3) + 1}
+                        "wavefront_steps": wavefront_steps(n)}
 
 
 def _k3_case(what, strips, band64, n, b, amax, plant=None) -> dict:
@@ -675,6 +681,7 @@ def _k3_case(what, strips, band64, n, b, amax, plant=None) -> dict:
         last[0] = now
 
     dtype = strips.dtype
+    plan = chase_plan(n, b, dtype)
     got = band_to_tridiag_strips_kernel(strips, n, b)
     lap("kernel")
     fut64 = _K3_POOL.submit(_k3_reference, "plain", _np(strips.to(band64.dtype)), _np(band64), n, b)
@@ -721,8 +728,13 @@ def _k3_case(what, strips, band64, n, b, amax, plant=None) -> dict:
         lap("res")
     r["seconds"] = time.perf_counter() - t0
     r["part_seconds"] = parts
-    emit("k3", n=n, b=b, dtype=str(dtype).replace("torch.", ""),
+    emit("k3", n=n, b=b, dtype=str(dtype).replace("torch.", ""), **plan._asdict(),
          bounds={"rel": K3_REL, "rel_cap": K3_REL_CAP}, **r)
+    # the wrapper's mirror of the launcher's rule (dtype, b) -> instance
+    require(plan.instance == chase_instance(b, dtype) and
+            (plan.instance == "streamed" or plan.smem_bytes == resident_smem_bytes(b, dtype)),
+            f"{what}: the launcher's {plan} against chase_instance "
+            f"{chase_instance(b, dtype)}, {resident_smem_bytes(b, dtype)} bytes resident")
     require(r["finite"], f"{what}: finite")
     for k, bound in (("rel", K3_REL), ("eig", r["eig_bound"]), ("res", r["res_bound"])):
         require(r[k] <= bound, f"{what}: {k} {r[k]} > {bound}")
@@ -800,9 +812,9 @@ def _phase_k3() -> None:
     # a narrow band whose lanes outnumber the co-resident blocks: n such that
     # lanes = 1.5 x the grid, so half the blocks take two lanes a step
     b = K3_MULTI_B
-    _, blocks = chase_plan(1 << 20, b, torch.float32)
+    blocks = chase_plan(1 << 20, b, torch.float32).blocks
     n = 3 * b * (blocks + blocks // 2) + 2
-    lanes, grid = chase_plan(n, b, torch.float32)
+    lanes, grid, *_ = chase_plan(n, b, torch.float32)
     require(lanes > grid, f"K3 n={n} b={b}: {lanes} lanes fit {grid} blocks")
     strips, band64, amax = _k3_band(g, n, b, torch.float32)
     r = _k3_case(f"K3 n={n} b={b} lanes={lanes} blocks={grid}", strips, band64, n, b, amax)
@@ -811,7 +823,11 @@ def _phase_k3() -> None:
     del strips, band64
     n, b = N_EIGH, B_EIGH
     bound_ms, bound_by, work = _k3_bound_ms(n, b, torch.float32)
-    emit("k3_time", n=n, b=b, dtype="float32", ms=ms, plain_ms=plain_ms,
+    plan = chase_plan(n, b, torch.float32)
+    require(plan.instance == "resident", f"K3 n={n} b={b} f32 (the main path's) takes {plan}")
+    us_per_step = ms * 1e3 / wavefront_steps(n)
+    emit("k3_time", n=n, b=b, dtype="float32", ms=ms, us_per_step=us_per_step,
+         lanes=plan.lanes, blocks=plan.blocks, instance=plan.instance, plain_ms=plain_ms,
          plain_shape=list(K3_PLAIN_TIMED), plain_pipelined_ms=pipelined_ms,
          bound_ms=bound_ms, bound_by=bound_by, **work)
     KERNELS["band_to_tridiag_strips"] = dict(
@@ -820,9 +836,9 @@ def _phase_k3() -> None:
         rel=worst["rel"], eig=worst["eig"], res=worst["res"],
         bound=f"rel <= {K3_REL}; eig, res <= {K3_EIG}, {K3_RES} x max(1, the plain "
               "version's), in eps32 ||B||_2",
-        ms=ms, plain_ms=plain_ms, plain_shape=list(K3_PLAIN_TIMED),
-        plain_pipelined_ms=pipelined_ms, bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=None, timed_shape=[n, b])
+        ms=ms, us_per_step=us_per_step, instance=plan.instance, plain_ms=plain_ms,
+        plain_shape=list(K3_PLAIN_TIMED), plain_pipelined_ms=pipelined_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=None, timed_shape=[n, b])
 
 
 def _eigh_stages(a, b: int):

@@ -14,52 +14,94 @@
 // vs[s - sweep_lo, c], taus[s - sweep_lo, c] (sweeps outside
 // [sweep_lo, sweep_lo + nrec) go to the discard row nrec).
 //
-// What bounds it: not flops and not bytes. A chase does ~12 b^2 flops on
-// ~2.5 b^2 entries, but chases depend on each other: (s+1, c') must follow
-// (s, c) where their windows overlap. The floor is the chain of dependent
-// wavefront steps, ~3n of them: chase (s, c) runs at step t = 3s + c
-// (band_strips.py proves the order of overlapping chases kept and the
-// windows of one step disjoint), so one step holds up to ceil(ncmax/3)
-// independent chases and the run is ~3n steps each as long as one chase
-// plus a grid barrier.
+// What bounds it: not flops and not the card's bytes. A chase does
+// ~12 b^2 flops on ~2.5 b^2 entries, but chases depend on each other:
+// (s+1, c') must follow (s, c) where their windows overlap. The floor is
+// the chain of dependent wavefront steps, ~3n of them: chase (s, c) runs
+// at step t = 3s + c (band_strips.py proves the order of overlapping
+// chases kept and the windows of one step disjoint), so one step holds up
+// to ceil(ncmax/3) independent chases and the run is ~3n steps, each as
+// long as one chase plus the hand-over between steps. A chase runs on one
+// SM, so its time is what one SM can pull from L2 and push back: on an
+// H100 about 50 GB/s each way for this window (scripts/torch_chip_probes.py
+// k3_loads), 161 KB of it at b = 128 in f32, then the read pass from
+// shared memory, then the hand-over (a fence and a flag through L2).
 //
-// Design: one persistent cooperative launch; the blocks walk the steps
-// together, with cooperative_groups' grid barrier between steps, and
-// each block takes the step's lanes w = blockIdx.x, blockIdx.x + gridDim.x,
-// ... (lane w holds sweep s = t/3 - w). The whole strip array is O(n b)
-// (21 MB at n = 8192, b = 128, f32) and stays in the 50 MB L2, so the
-// window is left in device memory and read through L2 (ld.global.cg: no
-// stale L1 lines across the barrier); shared memory holds v, the
-// reductions' partial sums and the window's row pointers. A chase is
-//   1. y, its norm (block reduction), the reflector (one thread), v;
-//   2. one read pass over CY, S (lower triangle) and B: column sums
-//      w = v^H CY, q = S v (row part + column part of the stored
-//      triangle), p = B v; alpha = q^H v, z = q - tau v alpha;
-//   3. one update pass: CY -= tau v w, S -= tau v q^H + conj(tau) z v^H
-//      (lower triangle), B -= conj(tau) p v^H.
-// A warp takes rows warp, warp + 16, ... and its lanes 32 neighbouring
-// columns; each lane issues the loads of RB rows of all three blocks before
-// it uses any, so that L2 latency overlaps (the window never passes
-// through shared memory). The symmetric form of step 3 needs S hermitian:
-// its diagonal is read and written as real, as LAPACK's hermitian
-// reductions keep it (an imaginary rounding residue on the diagonal would
-// otherwise grow from chase to chase through alpha). Every reduction runs
-// in a fixed order (warp shuffles, then the partials in warp or chunk
-// order), so repeat runs are bit-identical. Complex64 is native
-// interleaved complex (float2), not two real planes.
-#include <cooperative_groups.h>
+// Design: one persistent cooperative launch (the cooperative launch only
+// guarantees that every block is resident); each block takes the lanes
+// w = blockIdx.x, blockIdx.x + gridDim.x, ... (lane w holds chases
+// c = 3w .. 3w+2 of sweep s = t/3 - w), in increasing order at each step.
+// No grid barrier: a chase's window overlaps only the windows of lanes
+// w - 1, w and w + 1 at nearby steps (overlapping chases of lanes further
+// apart lie many steps apart), so lane w starts step t once lanes w - 1
+// and w + 1 have finished step t - 1. Each lane counts its finished steps
+// in done[w] (zeroed by the caller): a block publishes with
+// __syncthreads(); __threadfence(); st.release.gpu from one thread, and
+// waits with ld.acquire.gpu from one thread, then __syncthreads().
+// ops/kernels/band2tridiag.py's schedule twin and
+// tests/test_torch_k3_schedule.py check that this rule orders every pair
+// of overlapping chases as the sequential chase does. No deadlock: every
+// wait refers to step t - 1 only, a block takes its lanes of step t - 1
+// before any of step t, and all blocks are co-resident, so by induction
+// on t every lane finishes every step. The whole strip array is O(n b)
+// (21 MB at n = 8192, b = 128, f32) and stays in the 50 MB L2; the window
+// is read with ld.global.cg (no stale L1 lines of what a neighbour wrote).
+// Two instances of one template, chosen by the launcher from (dtype, b)
+// before the launch (chase_plan returns it, chase_instance mirrors the
+// rule):
+//  - resident (the window fits in shared memory: f32 up to b = 128,
+//    complex64 up to b = 94, b E a multiple of 4 floats): the window is
+//    loaded once, each of its 2b rows ([CY | S's lower triangle], then B)
+//    as the 16-byte chunks that cover it, four rows of a warp in flight
+//    together (an SM pulls whole rows in 16-byte loads about twice as
+//    fast as in 4-byte loads and 1.5 times as fast as the same window cut
+//    into CY, S and B segments), stored by chunk, so that each row sits in
+//    shared memory at its own shift of 0-3 floats, the same for every row;
+//    meanwhile warp 0 loads column y and makes the reflector. The read
+//    pass runs from shared memory as per-thread dots: thread (g, i) sums
+//    entries g*L .. g*L+L-1 of w_i = (v^H CY)_i, p_i = (B v)_i and
+//    q_i = (S v)_i (S hermitian from its lower triangle), starting at
+//    offset i mod L and wrapping, so that with row strides of 4m floats a
+//    warp's 32 threads read 32 banks both in the row dots and the column
+//    dots; the G partials are summed in group order. The update pass
+//    reads each entry once from shared memory and writes it straight back
+//    to the strips, coalesced, a [CY | S] row's two parts one after the
+//    other. Three block barriers a chase, and the hand-over's two.
+//  - streamed (the window does not fit: complex64 beyond b = 94, f32
+//    beyond 128, or b E not a multiple of 4): the window stays in L2.
+//    A chase is
+//      1. y, its norm (block reduction), the reflector (one thread), v;
+//      2. one read pass over CY, S (lower triangle) and B: column sums
+//         w = v^H CY, q = S v (row part + column part of the stored
+//         triangle), p = B v; alpha = q^H v, z = q - tau v alpha;
+//      3. one update pass: CY -= tau v w, S -= tau v q^H + conj(tau) z v^H
+//         (lower triangle), B -= conj(tau) p v^H.
+//    A warp takes rows warp, warp + 16, ... and its lanes 32 neighbouring
+//    columns; each lane issues the loads of RB rows of all three blocks
+//    before it uses any, so that L2 latency overlaps.
+// The symmetric form of the S update needs S hermitian: its diagonal is
+// read and written as real, as LAPACK's hermitian reductions keep it (an
+// imaginary rounding residue on the diagonal would otherwise grow from
+// chase to chase through alpha). Every reduction runs in a fixed order
+// (warp shuffles, then the partials in warp, chunk or group order), so
+// repeat runs are bit-identical. Complex64 is native interleaved complex
+// (float2), not two real planes.
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kLag = 3;       // wavefront steps between adjacent sweeps
-constexpr int kMaxB = 384;    // keeps the shared-memory plan under 227 KB
-constexpr int kRB = 8;        // rows whose loads a lane issues together
+constexpr int kMaxB = 384;    // keeps the streamed plan under 227 KB
+constexpr int kRB = 8;        // rows whose loads a lane issues together (streamed)
+constexpr int kResMaxB = 128; // the resident instance's widest band
+constexpr int kResChunks = kResMaxB / 32;
+constexpr int kRowsAtOnce = 4;  // window rows whose loads a warp issues together (resident)
+constexpr int kSpanSlots = 3;   // 16-byte chunks a lane loads of a row: 32 x 3 x 4 floats
+                                // cover a [CY | S] row, 2b E + 3 floats (E floats an entry)
+constexpr size_t kHeader = 64;  // the chase's scalars, at the base of shared memory
 constexpr unsigned kFull = 0xffffffffu;
 
 // ---- scalar arithmetic on float (real) and float2 (complex64) ----------
@@ -95,11 +137,27 @@ __device__ __forceinline__ float shfl_down(float v, int o) { return __shfl_down_
 __device__ __forceinline__ float2 shfl_down(float2 v, int o) {
   return make_float2(__shfl_down_sync(kFull, v.x, o), __shfl_down_sync(kFull, v.y, o));
 }
+__device__ __forceinline__ float shfl_xor(float v, int o) { return __shfl_xor_sync(kFull, v, o); }
+__device__ __forceinline__ float2 shfl_xor(float2 v, int o) {
+  return make_float2(__shfl_xor_sync(kFull, v.x, o), __shfl_xor_sync(kFull, v.y, o));
+}
+__device__ __forceinline__ float shfl(float v, int l) { return __shfl_sync(kFull, v, l); }
+__device__ __forceinline__ float2 shfl(float2 v, int l) {
+  return make_float2(__shfl_sync(kFull, v.x, l), __shfl_sync(kFull, v.y, l));
+}
 
 // Sum over the warp, fixed tree; the result is in lane 0.
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
   for (int o = 16; o > 0; o >>= 1) v = add(v, shfl_down(v, o));
+  return v;
+}
+
+// Sum over the warp by butterfly: every lane gets the same bits, since each
+// stage adds the same two operands in one order or the other.
+template <typename T>
+__device__ __forceinline__ T warp_allsum(T v) {
+  for (int o = 16; o > 0; o >>= 1) v = add(v, shfl_xor(v, o));
   return v;
 }
 
@@ -145,14 +203,237 @@ __device__ void reflector_head(float2 x0, float normx, float2* tau, float2* beta
   *denom = d;
 }
 
-// Shared-memory plan of one block, in bytes from the dynamic base:
-// 2b row pointers, then T arrays v, w, q, p, z (b each), the two column
-// partial-sum tables (kWarps x b each), the two row partial-sum tables
-// (b x ceil(b/32) each), the T reduction slots, the float reduction slots.
+// The chase's scalars, in the header of shared memory.
 template <typename T>
-size_t smem_bytes(int b) {
+struct Scalars {
+  T tau, beta, denom;
+  int safe;
+};
+static_assert(sizeof(Scalars<float2>) <= kHeader, "header too small");
+
+// ---- the resident instance ----------------------------------------------
+
+// Row strides in floats of the window in shared memory: a [CY | S] row of
+// 2b entries and a B row of b entries, each after a shift of up to 3
+// floats and with the overhang of its last 16-byte chunk, in whole chunks.
+// Any multiple of 4 floats keeps the read pass free of bank conflicts,
+// since thread i walks its k range rotated by i (see chase_resident).
+__host__ __device__ inline int row_floats(int entries, int floats_an_entry) {
+  return (entries * floats_an_entry + 6 + 3) / 4 * 4;
+}
+// Threads a group of the read pass (b rounded up to whole warps) and groups.
+__host__ __device__ inline int res_nt(int b) { return ((b + 31) / 32) * 32; }
+__host__ __device__ inline int res_groups(int b) { return kThreads / res_nt(b); }
+
+// Shared-memory plan of the resident instance, in bytes from the dynamic
+// base: the header; b rows [CY | S] and b rows B; v, w, q, p (b each); the
+// read pass's partial sums (3 x groups x b).
+template <typename T>
+size_t resident_bytes(int b) {
+  const int e = sizeof(T) / sizeof(float);
+  return kHeader + (size_t)b * (row_floats(2 * b, e) + row_floats(b, e)) * sizeof(float) +
+         (4 * (size_t)b + 3 * (size_t)res_groups(b) * b) * sizeof(T);
+}
+
+// One chase (s, c) at reflector row i0 by the whole block, its window in
+// shared memory.
+template <typename T>
+__device__ void chase_resident(T* strips, int b, long long i0, bool first, T* vrec, T* taurec,
+                               unsigned char* smem) {
+  constexpr int E = sizeof(T) / sizeof(float);   // floats an entry
+  Scalars<T>& sc = *reinterpret_cast<Scalars<T>*>(smem);
+  const int LS = row_floats(2 * b, E), LB = row_floats(b, E), nt = res_nt(b), ng = res_groups(b);
+  float* csf = reinterpret_cast<float*>(smem + kHeader);   // [CY | S] row r at csf + r*LS
+  float* bsf = csf + b * LS;                                // B row r at bsf + r*LB
+  T* v = reinterpret_cast<T*>(bsf + b * LB);
+  T* w = v + b;      // w, q, p are consecutive: w + k*b is w, q, p for k = 0, 1, 2
+  T* q = w + b;
+  T* p = q + b;
+  T* part = p + b;   // part[(k*ng + g)*b + i]: group g's partial of w, q, p (k = 0, 1, 2)
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long ld5 = 5LL * b;
+  const long long s0 = i0 / b;
+  const int im = (int)(i0 - s0 * b);
+  // window row g (0 <= g < 2b) starts at A[i0 + g, i0 - b]; A[R, C] is at
+  // R*5b + C - (R/b)*b + 3b, and R/b = s0 + (g + im)/b with g + im < 3b
+  auto row = [&](int g) -> T* {
+    const long long strip = s0 + (g + im >= 2 * b ? 2 : (g + im >= b ? 1 : 0));
+    return strips + (i0 + g) * ld5 - strip * b + 3LL * b + (i0 - b);
+  };
+  // every row segment of the window starts the same number of floats past
+  // a 16-byte boundary (b E is a multiple of 4 floats), and sits at that
+  // shift in its row of shared memory
+  const int sh = (int)((reinterpret_cast<uintptr_t>(row(0)) >> 2) & 3);
+  const int ldc = LS / E, ldb = LB / E;
+  T* cyp = reinterpret_cast<T*>(csf + sh);           // CY[k][i] = cyp[k*ldc + i]
+  T* sp = cyp + b;                                   // S[k][i] = sp[k*ldc + i]
+  T* bp = reinterpret_cast<T*>(bsf + sh);            // B[k][i] = bp[k*ldb + i]
+  const int ycol = first ? b - 1 : 0;
+
+  // 1. warp 0 sends the loads of column y, the other warps' window loads
+  //    go out meanwhile; warp 0 makes the reflector after its own share.
+  T y[kResChunks];
+  if (warp == 0) {
+#pragma unroll
+    for (int k = 0; k < kResChunks; ++k) {
+      const int r = lane + 32 * k;
+      y[k] = r < b ? ld(row(r) + ycol) : zero<T>();
+    }
+  }
+  // the window as 2b rows, [CY | S's lower triangle] (b + g + 1 entries)
+  // and B, each read whole as the 16-byte chunks that cover it (up to 3
+  // floats on either side are read and land in the row's margins),
+  // kRowsAtOnce rows of a warp in flight together. (An SM pulls whole rows
+  // about 1.5 times as fast as the same window cut into CY, S and B
+  // segments.)
+  for (int g0 = warp; g0 < 2 * b; g0 += kWarps * kRowsAtOnce) {
+    float4 x[kRowsAtOnce][kSpanSlots];
+    int nch[kRowsAtOnce];
+    float* dst[kRowsAtOnce];
+#pragma unroll
+    for (int k = 0; k < kRowsAtOnce; ++k) {
+      const int g = g0 + k * kWarps;
+      const T* seg = g < b ? row(g) : row(g) + b;
+      nch[k] = g < 2 * b ? (sh + (g < b ? b + g + 1 : b) * E + 3) / 4 : 0;
+      dst[k] = g < b ? csf + g * LS : bsf + (g - b) * LB;
+      const float4* span = reinterpret_cast<const float4*>(reinterpret_cast<const float*>(seg) - sh);
+#pragma unroll
+      for (int j = 0; j < kSpanSlots; ++j) {
+        const int ch = 32 * j + lane;
+        x[k][j] = ch < nch[k] ? __ldcg(span + ch) : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kRowsAtOnce; ++k) {
+#pragma unroll
+      for (int j = 0; j < kSpanSlots; ++j) {
+        const int ch = 32 * j + lane;
+        if (ch < nch[k]) reinterpret_cast<float4*>(dst[k])[ch] = x[k][j];
+      }
+    }
+  }
+  if (warp == 0) {
+    float nrm = 0.f;
+#pragma unroll
+    for (int k = 0; k < kResChunks; ++k) nrm += abs2(y[k]);
+    nrm = warp_allsum(nrm);
+    T tau, beta, denom;
+    int safe;
+    reflector_head(shfl(y[0], 0), sqrtf(nrm), &tau, &beta, &denom, &safe);
+    const T inv = div_(one<T>(), denom);
+#pragma unroll
+    for (int k = 0; k < kResChunks; ++k) {
+      const int r = lane + 32 * k;
+      if (r < b) {
+        const T vr = r == 0 ? one<T>() : (safe ? mul(y[k], inv) : y[k]);
+        v[r] = vr;
+        vrec[r] = vr;
+      }
+    }
+    if (lane == 0) {
+      sc.tau = tau;
+      sc.beta = beta;
+      *taurec = tau;
+    }
+  }
+  __syncthreads();
+
+  // 2. read pass from shared memory: thread (g, i) sums k in its group's
+  //    range of w_i = sum conj(v_k) CY[k][i], p_i = sum B[i][k] v_k and
+  //    q_i = sum Sh[i][k] v_k, Sh[i][k] = S[i][k] (k <= i, real on the
+  //    diagonal) or conj(S[k][i]) (k > i). Thread i starts its range at
+  //    offset i mod its length and wraps: with a row stride of 4m floats,
+  //    a warp's 32 threads then read 32 banks in the row dots as in the
+  //    column dots ((4m + 1) i + const) wherever the range is 32 long.
+  const int g = tid / nt, i = tid - g * nt;
+  if (g < ng && i < b) {
+    const int len = (b + ng - 1) / ng;
+    const int k0 = min(b, g * len), nk = min(b, k0 + len) - k0;
+    T aw = zero<T>(), aq = zero<T>(), ap = zero<T>();
+    int kk = nk > 0 ? i % nk : 0;
+    for (int jj = 0; jj < nk; ++jj) {
+      const int k = k0 + kk;
+      kk = kk + 1 == nk ? 0 : kk + 1;
+      const T vk = v[k];
+      aw = add(aw, mul(conj_(vk), cyp[k * ldc + i]));
+      ap = add(ap, mul(bp[i * ldb + k], vk));
+      T sk = k <= i ? sp[i * ldc + k] : conj_(sp[k * ldc + i]);
+      if (k == i) sk = realpart(sk);
+      aq = add(aq, mul(sk, vk));
+    }
+    part[g * b + i] = aw;
+    part[(ng + g) * b + i] = aq;
+    part[(2 * ng + g) * b + i] = ap;
+  }
+  __syncthreads();
+  if (g < 3 && i < b) {
+    const T* pk = part + g * ng * b + i;
+    T acc = pk[0];
+    for (int gg = 1; gg < ng; ++gg) acc = add(acc, pk[gg * b]);
+    w[g * b + i] = acc;
+  }
+  __syncthreads();
+  // alpha = q^H v (real), the same bits in every warp
+  T al = zero<T>();
+  for (int c = lane; c < b; c += 32) al = add(al, mul(conj_(q[c]), v[c]));
+  al = realpart(warp_allsum(al));
+
+  // 3. update pass, each window row from shared memory straight back to
+  //    the strips: CY -= tau v w (column y: beta e_0) and S -= tau v q^H +
+  //    conj(tau) z v^H (lower triangle) of a [CY | S] row one after the
+  //    other, B -= conj(tau) p v^H
+  const T tau = sc.tau, beta = sc.beta, ctau = conj_(tau);
+  T wc[kResChunks], cqc[kResChunks], cvc[kResChunks];
+#pragma unroll
+  for (int j = 0; j < kResChunks; ++j) {
+    const int c = 32 * j + lane;
+    wc[j] = c < b ? w[c] : zero<T>();
+    cqc[j] = c < b ? conj_(q[c]) : zero<T>();
+    cvc[j] = c < b ? conj_(v[c]) : zero<T>();
+  }
+  for (int r = warp; r < 2 * b; r += kWarps) {
+    if (r < b) {
+      const T* src = cyp + r * ldc;
+      T* dst = row(r);
+      const T tv = mul(tau, v[r]);
+      const T ctz = mul(ctau, sub(q[r], mul(tau, mul(v[r], al))));
+#pragma unroll
+      for (int j = 0; j < kResChunks; ++j) {
+        const int c = 32 * j + lane;
+        if (c < b) dst[c] = c == ycol ? (r == 0 ? beta : zero<T>()) : sub(src[c], mul(tv, wc[j]));
+      }
+#pragma unroll
+      for (int j = 0; j < kResChunks; ++j) {
+        const int c = 32 * j + lane;
+        if (c <= r && c < b) {
+          const T s2 = sub(sub(src[b + c], mul(tv, cqc[j])), mul(ctz, cvc[j]));
+          dst[b + c] = c == r ? realpart(s2) : s2;
+        }
+      }
+    } else {
+      const T* src = bp + (r - b) * ldb;
+      T* dst = row(r) + b;
+      const T cp = mul(ctau, p[r - b]);
+#pragma unroll
+      for (int j = 0; j < kResChunks; ++j) {
+        const int c = 32 * j + lane;
+        if (c < b) dst[c] = sub(src[c], mul(cp, cvc[j]));
+      }
+    }
+  }
+}
+
+// ---- the streamed instance ----------------------------------------------
+
+// Shared-memory plan of the streamed instance, in bytes from the dynamic
+// base: the header, 2b row pointers, then T arrays v, w, q, p, z (b each),
+// the two column partial-sum tables (kWarps x b each), the two row
+// partial-sum tables (b x ceil(b/32) each), the T reduction slots, the
+// float reduction slots.
+template <typename T>
+size_t streamed_bytes(int b) {
   const size_t nch = (b + 31) / 32;
-  return 2 * (size_t)b * sizeof(void*) +
+  return kHeader + 2 * (size_t)b * sizeof(void*) +
          ((5 + 2 * (size_t)kWarps + 2 * nch) * b + kWarps + 1) * sizeof(T) +
          (kWarps + 1) * sizeof(float);
 }
@@ -164,8 +445,8 @@ struct Smem {
   float* redf;
   __device__ explicit Smem(unsigned char* base, int b) {
     const int nch = (b + 31) / 32;
-    rowp = reinterpret_cast<T**>(base);
-    v = reinterpret_cast<T*>(base + 2 * (size_t)b * sizeof(void*));
+    rowp = reinterpret_cast<T**>(base + kHeader);
+    v = reinterpret_cast<T*>(base + kHeader + 2 * (size_t)b * sizeof(void*));
     w = v + b;
     q = w + b;
     p = q + b;
@@ -179,10 +460,13 @@ struct Smem {
   }
 };
 
-// One chase (s, c) at reflector row i0 by the whole block.
+// One chase (s, c) at reflector row i0 by the whole block, its window
+// streamed from L2.
 template <typename T>
-__device__ void chase(T* strips, int b, long long i0, bool first, T* vrec, T* taurec,
-                      const Smem<T>& sm, T& sh_tau, T& sh_beta, T& sh_denom, int& sh_safe) {
+__device__ void chase_streamed(T* strips, int b, long long i0, bool first, T* vrec, T* taurec,
+                               unsigned char* smem) {
+  Scalars<T>& sh = *reinterpret_cast<Scalars<T>*>(smem);
+  const Smem<T> sm(smem, b);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nch = (b + 31) / 32;
   const long long ld5 = 5LL * b;
@@ -202,10 +486,10 @@ __device__ void chase(T* strips, int b, long long i0, bool first, T* vrec, T* ta
     nrm += abs2(y);
   }
   nrm = block_sum(nrm, sm.redf);
-  if (tid == 0) reflector_head(sm.v[0], sqrtf(nrm), &sh_tau, &sh_beta, &sh_denom, &sh_safe);
+  if (tid == 0) reflector_head(sm.v[0], sqrtf(nrm), &sh.tau, &sh.beta, &sh.denom, &sh.safe);
   __syncthreads();
-  const T tau = sh_tau, beta = sh_beta, denom = sh_denom;
-  const bool safe = sh_safe;
+  const T tau = sh.tau, beta = sh.beta, denom = sh.denom;
+  const bool safe = sh.safe;
   for (int r = tid; r < b; r += kThreads) {
     const T y = sm.v[r];
     sm.v[r] = r == 0 ? one<T>() : (safe ? div_(y, denom) : y);
@@ -310,77 +594,131 @@ __device__ void chase(T* strips, int b, long long i0, bool first, T* vrec, T* ta
       }
     }
   }
+}
+
+// ---- the launch -----------------------------------------------------------
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+// Lane w starts step t once lanes w - 1 and w + 1 have finished step t - 1
+// (done[] counts each lane's finished steps).
+__device__ __forceinline__ void wait_neighbours(const int* done, int w, int nlanes, int t) {
+  if (threadIdx.x == 0) {
+    if (w > 0)
+      while (ld_acquire(done + w - 1) < t) {
+      }
+    if (w + 1 < nlanes)
+      while (ld_acquire(done + w + 1) < t) {
+      }
+  }
   __syncthreads();
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
-chase_kernel(T* strips, T* vs, T* taus, int n, int b, int nrec, int sweep_lo, int nlanes,
-             int tsteps) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ T sh_tau, sh_beta, sh_denom;
-  __shared__ int sh_safe;
-  const Smem<T> sm(smem_raw, b);
-  cg::grid_group grid = cg::this_grid();
-  const int nsweeps = n - 2, ncmax = (n + b - 2) / b;
-  for (int t = 0; t < tsteps; ++t) {
-    for (int w = blockIdx.x; w < nlanes; w += gridDim.x) {
-      const int s = t / kLag - w;
-      const int c = t - kLag * s;
-      if (s < 0 || s >= nsweeps || c >= (n - 2 - s + b) / b) continue;
-      const int rel = s - sweep_lo;
-      const long long row = (rel >= 0 && rel < nrec) ? rel : nrec;
-      chase<T>(strips, b, s + 1 + (long long)c * b, c == 0, vs + (row * ncmax + c) * b,
-               taus + row * ncmax + c, sm, sh_tau, sh_beta, sh_denom, sh_safe);
-    }
-    grid.sync();
+// Lane w has finished step t: the block's writes, then the count.
+__device__ __forceinline__ void publish(int* done, int w, int t) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    st_release(done + w, t + 1);
   }
 }
 
-int num_sms() {
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return sms;
+template <typename T, bool kResident>
+__global__ void __launch_bounds__(kThreads, 1)
+chase_kernel(T* strips, T* vs, T* taus, int* done, int n, int b, int nrec, int sweep_lo,
+             int nlanes, int tsteps) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int nsweeps = n - 2, ncmax = (n + b - 2) / b;
+  for (int t = 0; t < tsteps; ++t) {
+    for (int w = blockIdx.x; w < nlanes; w += gridDim.x) {
+      wait_neighbours(done, w, nlanes, t);
+      const int s = t / kLag - w;
+      const int c = t - kLag * s;
+      if (s >= 0 && s < nsweeps && c < (n - 2 - s + b) / b) {
+        const int rel = s - sweep_lo;
+        const long long row = (rel >= 0 && rel < nrec) ? rel : nrec;
+        T* vrec = vs + (row * ncmax + c) * b;
+        T* taurec = taus + row * ncmax + c;
+        if (kResident) {
+          chase_resident<T>(strips, b, s + 1 + (long long)c * b, c == 0, vrec, taurec, smem);
+        } else {
+          chase_streamed<T>(strips, b, s + 1 + (long long)c * b, c == 0, vrec, taurec, smem);
+        }
+      }
+      publish(done, w, t);
+    }
+  }
 }
 
-// The launch's shape at (n, b): the lanes (concurrent chases of the widest
-// step), the grid and the dynamic shared memory. A grid barrier needs every
-// block resident, so the grid is never larger than the blocks that fit on
-// the card; where there are more lanes, a block takes several per step.
+int device_attr(cudaDeviceAttr attr) {
+  int dev = 0, v = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&v, attr, dev);
+  return v;
+}
+
+// The launch's plan at (n, b): the lanes (concurrent chases of the widest
+// step), the grid, the instance (resident where the window fits in the
+// shared memory a block may have, with b <= kResMaxB) and its dynamic
+// shared memory. The blocks must be co-resident, so the grid is never
+// larger than the blocks that fit on the card; where there are more lanes,
+// a block takes several per step.
+struct Plan {
+  int lanes, grid, resident;
+  size_t smem;
+};
+
 template <typename T>
-cudaError_t plan(int n, int b, int* nlanes, int* grid, size_t* smem) {
+bool resident_fits(int b) {
+  const int e = sizeof(T) / sizeof(float);
+  return b <= kResMaxB && b * e % 4 == 0 && 2 * b * e + 3 <= 128 * kSpanSlots &&
+         resident_bytes<T>(b) <= (size_t)device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin);
+}
+
+template <typename T>
+cudaError_t plan(int n, int b, Plan* pl) {
   if (n < 3 || b < 1 || b > kMaxB) return cudaErrorInvalidValue;
   const int ncmax = (n + b - 2) / b;
-  *nlanes = (ncmax - 1) / kLag + 1;
-  *smem = smem_bytes<T>(b);
-  auto kern = chase_kernel<T>;
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+  pl->lanes = (ncmax - 1) / kLag + 1;
+  pl->resident = resident_fits<T>(b);
+  pl->smem = pl->resident ? resident_bytes<T>(b) : streamed_bytes<T>(b);
+  const void* kern = pl->resident ? (const void*)chase_kernel<T, true>
+                                  : (const void*)chase_kernel<T, false>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)pl->smem);
   if (e != cudaSuccess) return e;
   int per_sm = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, *smem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, pl->smem);
   if (e != cudaSuccess) return e;
-  const int fit = per_sm * num_sms();
-  *grid = *nlanes < fit ? *nlanes : fit;
-  return *grid < 1 ? cudaErrorCooperativeLaunchTooLarge : cudaSuccess;
+  const int fit = per_sm * device_attr(cudaDevAttrMultiProcessorCount);
+  pl->grid = pl->lanes < fit ? pl->lanes : fit;
+  return pl->grid < 1 ? cudaErrorCooperativeLaunchTooLarge : cudaSuccess;
 }
 
 template <typename T>
-int launch(void* strips, void* vs, void* taus, int n, int b, int nrec, int sweep_lo,
+int launch(void* strips, void* vs, void* taus, void* done, int n, int b, int nrec, int sweep_lo,
            cudaStream_t stream) {
   if (nrec < 0) return (int)cudaErrorInvalidValue;
-  int nlanes = 0, grid = 0;
-  size_t smem = 0;
-  cudaError_t e = plan<T>(n, b, &nlanes, &grid, &smem);
+  Plan pl;
+  cudaError_t e = plan<T>(n, b, &pl);
   if (e != cudaSuccess) return (int)e;
   int tsteps = kLag * (n - 3) + 1;   // the last chase is (n-3, 0)
-  auto kern = chase_kernel<T>;
+  const void* kern = pl.resident ? (const void*)chase_kernel<T, true>
+                                 : (const void*)chase_kernel<T, false>;
   T* sp = static_cast<T*>(strips);
   T* vp = static_cast<T*>(vs);
   T* tp = static_cast<T*>(taus);
-  void* args[] = {&sp, &vp, &tp, &n, &b, &nrec, &sweep_lo, &nlanes, &tsteps};
-  e = cudaLaunchCooperativeKernel((const void*)kern, dim3(grid), dim3(kThreads), args,
-                                  smem, stream);
+  int* dp = static_cast<int*>(done);
+  int nlanes = pl.lanes;
+  void* args[] = {&sp, &vp, &tp, &dp, &n, &b, &nrec, &sweep_lo, &nlanes, &tsteps};
+  e = cudaLaunchCooperativeKernel(kern, dim3(pl.grid), dim3(kThreads), args, pl.smem, stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -389,21 +727,28 @@ int launch(void* strips, void* vs, void* taus, int n, int b, int nrec, int sweep
 
 // strips: (>= n_strips(n, b), b, 5b), chased in place. vs: (nrec + 1, ncmax, b)
 // and taus: (nrec + 1, ncmax), zero-filled by the caller (unvisited slots
-// must read as tau = 0). is_complex: 0 f32, 1 complex64.
-extern "C" int dlaf_band2tridiag(void* strips, void* vs, void* taus, int n, int b, int nrec,
-                                 int sweep_lo, int is_complex, void* stream) {
+// must read as tau = 0). done: int32 (lanes), zero-filled by the caller.
+// is_complex: 0 f32, 1 complex64.
+extern "C" int dlaf_band2tridiag(void* strips, void* vs, void* taus, void* done, int n, int b,
+                                 int nrec, int sweep_lo, int is_complex, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_complex ? launch<float2>(strips, vs, taus, n, b, nrec, sweep_lo, st)
-                    : launch<float>(strips, vs, taus, n, b, nrec, sweep_lo, st);
+  return is_complex ? launch<float2>(strips, vs, taus, done, n, b, nrec, sweep_lo, st)
+                    : launch<float>(strips, vs, taus, done, n, b, nrec, sweep_lo, st);
 }
 
-// The launch's lanes and grid at (n, b) into out[0] and out[1], without
-// launching: where out[0] > out[1] a block takes several lanes per step.
+// The launch's plan at (n, b) into out[0..3], without launching: lanes,
+// grid (where lanes > grid a block takes several lanes per step), the
+// instance (1 resident, 0 streamed) and its dynamic shared memory in bytes.
 extern "C" int dlaf_band2tridiag_plan(int n, int b, int is_complex, void* out) {
   int* o = static_cast<int*>(out);
-  size_t smem = 0;
-  return (int)(is_complex ? plan<float2>(n, b, &o[0], &o[1], &smem)
-                          : plan<float>(n, b, &o[0], &o[1], &smem));
+  Plan pl;
+  const cudaError_t e = is_complex ? plan<float2>(n, b, &pl) : plan<float>(n, b, &pl);
+  if (e != cudaSuccess) return (int)e;
+  o[0] = pl.lanes;
+  o[1] = pl.grid;
+  o[2] = pl.resident;
+  o[3] = (int)pl.smem;
+  return 0;
 }
 
 extern "C" const char* dlaf_cuda_error_string(int e) {

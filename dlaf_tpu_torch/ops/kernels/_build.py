@@ -48,9 +48,9 @@ SIGNATURES = {
         "dlaf_ksub_tf32x3_plan": [_P, _LL, _P, _LL, _I, _I, _I, _P],
     },
     "band2tridiag": {
-        # strips, vs, taus, n, b, nrec, sweep_lo, is_complex, stream
-        "dlaf_band2tridiag": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-        # n, b, is_complex, out (int[2]: lanes, grid)
+        # strips, vs, taus, done (int32 a lane), n, b, nrec, sweep_lo, is_complex, stream
+        "dlaf_band2tridiag": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        # n, b, is_complex, out (int[4]: lanes, grid, resident, shared memory bytes)
         "dlaf_band2tridiag_plan": [_I, _I, _I, _P],
     },
     "bt_apply": {

@@ -1,7 +1,7 @@
 """Measurements of the PyTorch/H100 port beside chip_smoke.py's checks, on one CUDA card.
 
     python3 scripts/torch_chip_probes.py accumulation bf16_potrf profile dist_profile \
-        stage4_profile k5_levers[=BASELINE.cu]
+        stage4_profile k5_levers[=BASELINE.cu] k3_levers[=BASELINE.cu] stage2 k3_loads
 
 - ``accumulation``: K2 (``csrc/ksub_tf32x3.cu``) as built, where each
   32-deep k step is summed on the tensor cores from zero and then added
@@ -47,6 +47,34 @@
   another tree's ``bt_apply.cu`` (the same C interface) and times it in
   the same turns. Each line gives the bytes the variant streams from L2
   and their rate: ``stream_only``'s is the rate of K5's own stream.
+- ``k3_levers``: K3 (``csrc/band2tridiag.cu``) at n = 8192, b = 128, f32
+  on a random band, timed in turns as built and as copies of its source
+  (built into ``build/dlaf_tpu_torch/k3_levers/``) patched to leave out
+  the chase (``no_chase``: the chain floor, the steps and their
+  synchronisation alone), the step synchronisation (``no_sync``: the grid
+  barrier or the neighbour waits; timing only, the result is wrong), the
+  update pass (``read_only``), the read pass (``update_only``) or both
+  (``load_only``: the resident instance's load wave and reflector), or
+  with clock64() marks (``phases``, also ``load_only+phases``: block 0's
+  time a step in each part of its step, one more launch); the edits are
+  chosen by the design the source has (a grid barrier a step and the
+  window streamed from L2, or neighbour handoffs and the resident
+  instance). The built kernel is also timed at n = 1024, 4096 and 16384
+  (``k3_sizes``). ``=BASELINE.cu`` also builds another tree's
+  ``band2tridiag.cu`` and times it unpatched in the same turns. Each line
+  gives ms, microseconds a wavefront step and ptxas's registers and
+  spills.
+- ``k3_loads``: ``scripts/torch_k3_loads.cu`` built and run: how fast one
+  SM moves a K3 window (n = 8192, b = 128, f32) between L2 and shared
+  memory, by access shape (4-byte or 16-byte loads of whole rows, 16-byte
+  loads of CY, S and B segments, 4-byte or 16-byte stores), on one block
+  and on 22 (K3's lanes at n = 8192).
+- ``stage2``: stage 2 (band to tridiagonal, through K3) as the entry
+  points run it, on a random f32 band of width 128: ``eigh``'s at
+  n = 8192 (``band_to_tridiag_auto`` on the dense band) and
+  ``eigh_large``'s at n = 32768 (``packed_to_strips`` and one recorded
+  chase), a warm-up and three timed runs each, host clock after a
+  synchronisation.
 
 Each probe prints JSON lines; the last line is the card's name and
 power limit as nvidia-smi gives them. Runs only where a CUDA device is.
@@ -70,7 +98,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import dlaf_tpu_torch as dt  # noqa: E402
 from dlaf_tpu_torch.algos.eigensolver import bt as btm  # noqa: E402
 from dlaf_tpu_torch.algos.eigensolver import large  # noqa: E402
-from dlaf_tpu_torch.algos.eigensolver.band_strips import packed_to_strips  # noqa: E402
+from dlaf_tpu_torch.algos.eigensolver.band_strips import (  # noqa: E402
+    band_to_strips, packed_to_strips, strips_extract_tridiag)
 from dlaf_tpu_torch.algos.eigensolver.red2band import reduction_to_band  # noqa: E402
 from dlaf_tpu_torch.matrix import generators as gen  # noqa: E402
 from dlaf_tpu_torch.ops import leaf  # noqa: E402
@@ -98,31 +127,44 @@ ONE_SUM_EDITS = [
 ]
 
 
-def _patched_library(name: str, src: str, edits, subdir: str, tag: str):
-    """``src`` (a kernel source of library ``name``) with each (anchor,
-    replacement) of ``edits`` applied, built into
-    ``build/dlaf_tpu_torch/<subdir>/`` and loaded: (library, ptxas lines)."""
-    for old, new in edits:
-        if src.count(old) != 1:
-            raise RuntimeError(f"{name}.cu changed: anchor not found once: {old!r}")
-        src = src.replace(old, new)
+def _patched_libraries(name: str, variants: dict, subdir: str, signatures=None) -> dict:
+    """Each ``tag: (src, edits)`` of ``variants`` (a kernel source of
+    library ``name`` with each (anchor, replacement) of ``edits`` applied),
+    built into ``build/dlaf_tpu_torch/<subdir>/``, one nvcc each, all at
+    once, and loaded with ``signatures`` (default: the library's own):
+    {tag: (library, ptxas lines)}."""
     out = _build.BUILD_DIR / subdir
     out.mkdir(parents=True, exist_ok=True)
-    path, target = out / f"{name}_{tag}.cu", out / f"lib{name}_{tag}.so"
-    path.write_text(src)
-    run = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(target), str(path)],
-                         capture_output=True, text=True)
-    if run.returncode:
-        raise RuntimeError(f"nvcc failed for {path}:\n{run.stdout}{run.stderr}")
-    lib = ctypes.CDLL(str(target))
-    for fn, argtypes in _build.SIGNATURES[name].items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = ctypes.c_int
-    lib.dlaf_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.dlaf_cuda_error_string.restype = ctypes.c_char_p
-    ptxas = [line.strip() for line in (run.stdout + run.stderr).splitlines()
-             if "registers" in line or "spill" in line]
-    return lib, ptxas
+    procs = {}
+    for tag, (src, edits) in variants.items():
+        for old, new in edits:
+            if src.count(old) != 1:
+                raise RuntimeError(f"{name}.cu changed: anchor not found once: {old!r}")
+            src = src.replace(old, new)
+        path, target = out / f"{name}_{tag}.cu", out / f"lib{name}_{tag}.so"
+        path.write_text(src)
+        procs[tag] = (path, target, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(target), str(path)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for tag, (path, target, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {path}:\n{log}")
+        lib = ctypes.CDLL(str(target))
+        for fn, argtypes in (signatures or _build.SIGNATURES[name]).items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.dlaf_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.dlaf_cuda_error_string.restype = ctypes.c_char_p
+        libs[tag] = (lib, [line.strip() for line in log.splitlines()
+                           if "registers" in line or "spill" in line])
+    return libs
+
+
+def _patched_library(name: str, src: str, edits, subdir: str, tag: str):
+    """One variant of :func:`_patched_libraries`: (library, ptxas lines)."""
+    return _patched_libraries(name, {tag: (src, edits)}, subdir)[tag]
 
 
 def _one_sum_library() -> ctypes.CDLL:
@@ -235,6 +277,233 @@ def probe_k5_levers(baseline: str | None = None) -> None:
                  ms=ms, ms_turns=times[tag], err_eps_of_max_e=errs[tag],
                  l2_bytes=nbytes, l2_tb_per_s=nbytes / ms / 1e9, ptxas=libs[tag][1])
         del want, x
+
+
+# K3's variants, (anchor in band2tridiag.cu, replacement), by design: "grid"
+# is one cooperative grid barrier a wavefront step with the window streamed
+# from L2 (the design before the neighbour handoffs), "handoff" the
+# neighbour handoffs with the window resident in shared memory
+K3_LEVER_EDITS = {
+    "grid": {
+        "no_chase": [("      chase<T>(strips, b, s + 1", "      if (false) chase<T>(strips, b, s + 1")],
+        "no_sync": [("    grid.sync();\n", "")],
+        "read_only": [("  const T ctau = conj_(tau);\n  for (int ch = 0;",
+                       "  const T ctau = conj_(tau);\n  if (false) for (int ch = 0;")],
+        "update_only": [("  for (int ch = 0; ch < nch; ++ch) {\n    const int c = ch * 32 + lane;\n"
+                         "    const bool cin = c < b;\n    const T vc =",
+                         "  if (false) for (int ch = 0; ch < nch; ++ch) {\n    const int c = ch * 32 + lane;\n"
+                         "    const bool cin = c < b;\n    const T vc =")],
+    },
+    "handoff": {
+        "no_chase": [("        if (kResident) {\n", "        if (false) {\n"),
+                     ("        } else {\n          chase_streamed", "        } else if (false) {\n          chase_streamed")],
+        "no_sync": [("      wait_neighbours(done, w, nlanes, t);\n", "")],
+        "read_only": [("  for (int r = warp; r < 2 * b; r += kWarps) {",
+                       "  for (int r = warp; false; r += kWarps) {")],
+        "update_only": [("  if (g < ng && i < b) {", "  if (false) {")],
+        # block 0 (lane 0, the first in the chain) sums clock64() between
+        # marks of its thread 0 (K3_PHASES)
+        "phases": [
+            ("#include <stdint.h>\n",
+             "#include <stdint.h>\n__device__ unsigned long long k3_acc[10], k3_last;\n"
+             "#define K3_MARK(i) if (blockIdx.x == 0 && threadIdx.x == 0) { const unsigned long "
+             "long now_ = clock64(); k3_acc[i] += now_ - k3_last; k3_last = now_; }\n"),
+            ("  const int nsweeps = n - 2, ncmax = (n + b - 2) / b;\n",
+             "  const int nsweeps = n - 2, ncmax = (n + b - 2) / b;\n"
+             "  if (blockIdx.x == 0 && threadIdx.x == 0) k3_last = clock64();\n"),
+            ("      wait_neighbours(done, w, nlanes, t);\n",
+             "      K3_MARK(0);\n      wait_neighbours(done, w, nlanes, t);\n      K3_MARK(1);\n"),
+            ("      publish(done, w, t);\n",
+             "      K3_MARK(5);\n      publish(done, w, t);\n      K3_MARK(6);\n"),
+            ("      *taurec = tau;\n    }\n  }\n  __syncthreads();\n",
+             "      *taurec = tau;\n    }\n  }\n  K3_MARK(8);\n  __syncthreads();\n  K3_MARK(2);\n"),
+            ("  if (warp == 0) {\n    float nrm = 0.f;",
+             "  K3_MARK(7);\n  if (warp == 0) {\n    float nrm = 0.f;"),
+            ("    part[(2 * ng + g) * b + i] = ap;\n  }\n  __syncthreads();\n",
+             "    part[(2 * ng + g) * b + i] = ap;\n  }\n  __syncthreads();\n  K3_MARK(3);\n"),
+            ("    w[g * b + i] = acc;\n  }\n  __syncthreads();\n",
+             "    w[g * b + i] = acc;\n  }\n  __syncthreads();\n  K3_MARK(4);\n"),
+            ("  for (int r = warp; r < 2 * b; r += kWarps) {",
+             "  K3_MARK(9);\n  for (int r = warp; r < 2 * b; r += kWarps) {"),
+            ('extern "C" const char* dlaf_cuda_error_string(int e) {',
+             'extern "C" int dlaf_k3_marks(void* out) {\n'
+             '  cudaMemcpyFromSymbol(out, k3_acc, sizeof(k3_acc));\n'
+             '  unsigned long long z[10] = {0};\n'
+             '  cudaMemcpyToSymbol(k3_acc, z, sizeof(z));\n'
+             '  return (int)cudaGetLastError();\n}\n\n'
+             'extern "C" const char* dlaf_cuda_error_string(int e) {'),
+        ],
+    },
+}
+K3_SIZES = (1024, 4096, 16384)   # the built kernel at these n too (k3_sizes lines)
+# variants built from several edit lists of K3_LEVER_EDITS["handoff"]
+# variants built from several edit lists of K3_LEVER_EDITS["handoff"]
+K3_COMPOSED = {"load_only": ("read_only", "update_only"),
+               "load_only+phases": ("phases", "read_only", "update_only")}
+K3_PHASES = ("step_loop", "wait", "barrier_after_reflector", "read_pass", "partial_sums",
+             "update_rows_warp0", "end_barrier_fence_release", "window_loads_warp0",
+             "reflector_warp0", "alpha_and_column_caches")
+# the C interface with and without the lanes' step counts: strips, vs,
+# taus, [done,] n, b, nrec, sweep_lo, is_complex, stream; the plan's n, b,
+# is_complex, out
+K3_SIGNATURES = {
+    False: {"dlaf_band2tridiag": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+            "dlaf_band2tridiag_plan": [ctypes.c_int] * 3 + [ctypes.c_void_p]},
+    True: {"dlaf_band2tridiag": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+           "dlaf_band2tridiag_plan": [ctypes.c_int] * 3 + [ctypes.c_void_p]},
+}
+
+
+def _k3_design(src: str):
+    """(the design whose anchors ``src`` has, or None; whether its C
+    interface takes the lanes' step counts)."""
+    for design, variants in K3_LEVER_EDITS.items():
+        if all(src.count(old) == 1 for edits in variants.values() for old, _ in edits):
+            return design, "void* done" in src
+    return None, "void* done" in src
+
+
+def probe_k3_levers(baseline: str | None = None) -> None:
+    n, b = 8192, 128
+    src = (_build.CSRC / "band2tridiag.cu").read_text()
+    design, with_done = _k3_design(src)
+    variants = {"built": (src, [])}
+    edits_of = K3_LEVER_EDITS.get(design, {})
+    variants.update({tag: (src, edits) for tag, edits in edits_of.items()})
+    if design == "handoff":
+        variants.update({tag: (src, [e for part in parts for e in edits_of[part]])
+                         for tag, parts in K3_COMPOSED.items()})
+    libs = _patched_libraries("band2tridiag", variants, "k3_levers", K3_SIGNATURES[with_done])
+    designs = {tag: (design, with_done) for tag in libs}
+    if baseline:
+        bsrc = open(baseline).read()
+        designs["baseline"] = _k3_design(bsrc)
+        libs.update(_patched_libraries("band2tridiag", {"baseline": (bsrc, [])}, "k3_levers",
+                                       K3_SIGNATURES[designs["baseline"][1]]))
+    g = torch.Generator(device=DEV).manual_seed(10)
+    a = torch.triu(gen.random_hermitian(g, n, torch.float32), -b)
+    strips = band_to_strips(a, b)
+    del a
+    ncmax = -(-(n - 1) // b)
+    work = torch.empty_like(strips)
+    vs = torch.zeros((n - 1, ncmax, b), device=DEV)
+    taus = torch.zeros((n - 1, ncmax), device=DEV)
+    flags = torch.zeros(1 << 16, dtype=torch.int32, device=DEV)
+    steps = 3 * (n - 3) + 1
+
+    def launch(tag):
+        lib = libs[tag][0]
+        work.copy_(strips)
+        flags.zero_()
+        ptrs = [work.data_ptr(), vs.data_ptr(), taus.data_ptr()]
+        if designs[tag][1]:
+            ptrs.append(flags.data_ptr())
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        rc = lib.dlaf_band2tridiag(*ptrs, n, b, n - 2, 0, 0, _build.stream_of(work))
+        stop.record()
+        _build.check(rc, lib, f"k3_levers {tag}")
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop)
+
+    out = {}
+    for tag in libs:   # warm-up, and each variant's d and e beside the built kernel's
+        launch(tag)
+        out[tag] = strips_extract_tridiag(work, n, b)
+    times = {tag: [] for tag in libs}
+    for tag in list(libs) + list(reversed(libs)):
+        for _ in range(2):
+            times[tag].append(launch(tag))
+    for tag in [t for t in libs if "phases" in t]:   # one more launch, its clock64() sums
+        lib = libs[tag][0]
+        lib.dlaf_k3_marks.argtypes = [ctypes.c_void_p]
+        lib.dlaf_k3_marks.restype = ctypes.c_int
+        marks = (ctypes.c_ulonglong * len(K3_PHASES))()
+        lib.dlaf_k3_marks(ctypes.addressof(marks))
+        ms = launch(tag)
+        _build.check(lib.dlaf_k3_marks(ctypes.addressof(marks)), lib, "k3 marks")
+        cycles = [marks[i] for i in range(len(K3_PHASES))]
+        us_per_cycle = ms * 1e3 / sum(cycles)
+        phases = {name: c / steps * us_per_cycle for name, c in zip(K3_PHASES, cycles)}
+        emit("k3_phases", variant=tag, n=n, b=b, dtype="float32", ms=ms, us_per_step=phases,
+             clock_ghz=1e-3 / us_per_cycle, block=0)
+    for n2 in K3_SIZES:   # the built kernel at other n: µs a step against the strips' size
+        a2 = torch.triu(gen.random_hermitian(g, n2, torch.float32), -b)
+        s2 = band_to_strips(a2, b)
+        del a2
+        v2 = torch.zeros((n2 - 1, -(-(n2 - 1) // b), b), device=DEV)
+        t2 = torch.zeros((n2 - 1, -(-(n2 - 1) // b)), device=DEV)
+        lib = libs["built"][0]
+        ms2 = []
+        for _ in range(3):
+            w2 = s2.clone()
+            flags.zero_()
+            start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            rc = lib.dlaf_band2tridiag(w2.data_ptr(), v2.data_ptr(), t2.data_ptr(), flags.data_ptr(),
+                                       n2, b, n2 - 2, 0, 0, _build.stream_of(w2))
+            stop.record()
+            _build.check(rc, lib, "k3 sizes")
+            torch.cuda.synchronize()
+            ms2.append(start.elapsed_time(stop))
+        emit("k3_sizes", n=n2, b=b, strips_mb=s2.numel() * 4 / 2**20, ms=min(ms2[1:]),
+             us_per_step=min(ms2[1:]) * 1e3 / (3 * (n2 - 3) + 1))
+        del s2, v2, t2, w2
+    for tag, (lib, ptxas) in libs.items():
+        plan = (ctypes.c_int * 4)()
+        _build.check(lib.dlaf_band2tridiag_plan(n, b, 0, ctypes.addressof(plan)), lib, "plan")
+        d, e = out[tag]
+        ms = min(times[tag])
+        emit("k3_levers", variant=tag, design=designs[tag][0], n=n, b=b, dtype="float32",
+             ms=ms, ms_turns=times[tag], us_per_step=ms * 1e3 / steps, wavefront_steps=steps,
+             lanes=plan[0], blocks=plan[1], plan=list(plan),
+             d_vs_built=float((d - out["built"][0]).abs().max()),
+             abs_e_vs_built=float((e.abs() - out["built"][1].abs()).abs().max()),
+             finite=bool(torch.isfinite(d).all() and torch.isfinite(e).all()), ptxas=ptxas)
+
+
+def probe_k3_loads() -> None:
+    out = _build.BUILD_DIR / "k3_loads"
+    out.mkdir(parents=True, exist_ok=True)
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_k3_loads.cu")
+    exe = out / "k3_loads"
+    subprocess.run([_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-o",
+                    str(exe), src], check=True, capture_output=True, text=True)
+    run = subprocess.run([str(exe)], check=True, capture_output=True, text=True, timeout=300)
+    window_kb = (128 * 128 + 128 * 129 // 2 + 128 * 128) * 4 / 1024
+    for line in run.stdout.splitlines():
+        case, blocks, us = line.split()
+        emit("k3_loads", case=case, blocks=int(blocks), us_per_window=float(us),
+             window_kb=window_kb, gb_per_s=window_kb * 1024 / float(us) / 1e3)
+
+
+def probe_stage2() -> None:
+    from dlaf_tpu_torch.algos.eigensolver.band2tridiag import band_to_tridiag_auto
+    b = 128
+    for n, entry in ((8192, "eigh"), (32768, "eigh_large")):
+        g = torch.Generator(device=DEV).manual_seed(11)
+        band = torch.randn((n, n), generator=g, device=DEV)
+        band = torch.triu(torch.tril(band + band.T), -b)
+        if entry == "eigh":
+            def stage2():
+                return band_to_tridiag_auto(band, b)
+        else:
+            nsweeps = n - 2
+            chunk = -(-nsweeps // b) * b
+
+            def stage2():
+                return large._chase(packed_to_strips(band, b), n, b, 0, chunk)
+        secs = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = stage2()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            del out
+        emit("stage2", entry=entry, n=n, b=b, dtype="float32", seconds=secs[1:],
+             warmup_seconds=secs[0])
+        del band
 
 
 def probe_bf16_potrf() -> None:
@@ -386,7 +655,8 @@ def probe_stage4_profile() -> None:
 
 PROBES = {"accumulation": probe_accumulation, "bf16_potrf": probe_bf16_potrf,
           "profile": probe_profile, "dist_profile": probe_dist_profile,
-          "stage4_profile": probe_stage4_profile, "k5_levers": probe_k5_levers}
+          "stage4_profile": probe_stage4_profile, "k5_levers": probe_k5_levers,
+          "k3_levers": probe_k3_levers, "stage2": probe_stage2, "k3_loads": probe_k3_loads}
 
 
 if __name__ == "__main__":
