@@ -116,7 +116,7 @@ from dlaf_tpu_torch.ops.kernels.potrf import (  # noqa: E402
 from dlaf_tpu_torch.ops.householder import householder_vector  # noqa: E402
 from dlaf_tpu_torch.ops.kernels.band2tridiag import (  # noqa: E402
     band_to_tridiag_strips_kernel, band_to_tridiag_strips_ref, chase_instance, chase_plan,
-    resident_smem_bytes, wavefront_steps)
+    device_smem_optin, resident_smem_bytes, wavefront_steps)
 from dlaf_tpu_torch.ops.kernels.trailing import (  # noqa: E402
     ksub_matmul, ksub_matmul_masked, ksub_matmul_masked_ref, ksub_matmul_masked_split_ref,
     ksub_matmul_plan, ksub_matmul_ref, ksub_matmul_split_ref)
@@ -731,10 +731,11 @@ def _k3_case(what, strips, band64, n, b, amax, plant=None) -> dict:
     emit("k3", n=n, b=b, dtype=str(dtype).replace("torch.", ""), **plan._asdict(),
          bounds={"rel": K3_REL, "rel_cap": K3_REL_CAP}, **r)
     # the wrapper's mirror of the launcher's rule (dtype, b) -> instance
-    require(plan.instance == chase_instance(b, dtype) and
+    mirror = chase_instance(b, dtype, device_smem_optin(DEV))
+    require(plan.instance == mirror and
             (plan.instance == "streamed" or plan.smem_bytes == resident_smem_bytes(b, dtype)),
             f"{what}: the launcher's {plan} against chase_instance "
-            f"{chase_instance(b, dtype)}, {resident_smem_bytes(b, dtype)} bytes resident")
+            f"{mirror}, {resident_smem_bytes(b, dtype)} bytes resident")
     require(r["finite"], f"{what}: finite")
     for k, bound in (("rel", K3_REL), ("eig", r["eig_bound"]), ("res", r["res_bound"])):
         require(r[k] <= bound, f"{what}: {k} {r[k]} > {bound}")

@@ -23,9 +23,11 @@
 // to ceil(ncmax/3) independent chases and the run is ~3n steps, each as
 // long as one chase plus the hand-over between steps. A chase runs on one
 // SM, so its time is what one SM can pull from L2 and push back: on an
-// H100 about 50 GB/s each way for this window (scripts/torch_chip_probes.py
-// k3_loads), 161 KB of it at b = 128 in f32, then the read pass from
-// shared memory, then the hand-over (a fence and a flag through L2).
+// H100 a window of 160 KB (b = 128, f32) arrives in about 2.4 us as bulk
+// copies of its rows, 3.6 us as 16-byte loads through registers or
+// cp.async, and is written back at under 40 GB/s
+// (scripts/torch_chip_probes.py k3_loads); then the read pass from shared
+// memory, and the hand-over (a flag through L2).
 //
 // Design: one persistent cooperative launch (the cooperative launch only
 // guarantees that every block is resident); each block takes the lanes
@@ -36,8 +38,9 @@
 // apart lie many steps apart), so lane w starts step t once lanes w - 1
 // and w + 1 have finished step t - 1. Each lane counts its finished steps
 // in done[w] (zeroed by the caller): a block publishes with
-// __syncthreads(); __threadfence(); st.release.gpu from one thread, and
-// waits with ld.acquire.gpu from one thread, then __syncthreads().
+// __syncthreads() and st.release.gpu from one thread, and waits with
+// ld.acquire.gpu, thread 0 on lane w - 1 and thread 32 on lane w + 1,
+// then __syncthreads().
 // ops/kernels/band2tridiag.py's schedule twin and
 // tests/test_torch_k3_schedule.py check that this rule orders every pair
 // of overlapping chases as the sequential chase does. No deadlock: every
@@ -45,28 +48,27 @@
 // before any of step t, and all blocks are co-resident, so by induction
 // on t every lane finishes every step. The whole strip array is O(n b)
 // (21 MB at n = 8192, b = 128, f32) and stays in the 50 MB L2; the window
-// is read with ld.global.cg (no stale L1 lines of what a neighbour wrote).
+// is read through L2 only (ld.global.cg, bulk copies: no stale L1 lines
+// of what a neighbour wrote).
 // Two instances of one template, chosen by the launcher from (dtype, b)
 // before the launch (chase_plan returns it, chase_instance mirrors the
 // rule):
 //  - resident (the window fits in shared memory: f32 up to b = 128,
-//    complex64 up to b = 94, b E a multiple of 4 floats): the window is
-//    loaded once, each of its 2b rows ([CY | S's lower triangle], then B)
-//    as the 16-byte chunks that cover it, four rows of a warp in flight
-//    together (an SM pulls whole rows in 16-byte loads about twice as
-//    fast as in 4-byte loads and 1.5 times as fast as the same window cut
-//    into CY, S and B segments), stored by chunk, so that each row sits in
-//    shared memory at its own shift of 0-3 floats, the same for every row;
-//    meanwhile warp 0 loads column y and makes the reflector. The read
-//    pass runs from shared memory as per-thread dots: thread (g, i) sums
-//    entries g*L .. g*L+L-1 of w_i = (v^H CY)_i, p_i = (B v)_i and
-//    q_i = (S v)_i (S hermitian from its lower triangle), starting at
-//    offset i mod L and wrapping, so that with row strides of 4m floats a
-//    warp's 32 threads read 32 banks both in the row dots and the column
-//    dots; the G partials are summed in group order. The update pass
-//    reads each entry once from shared memory and writes it straight back
-//    to the strips, coalesced, a [CY | S] row's two parts one after the
-//    other. Three block barriers a chase, and the hand-over's two.
+//    complex64 up to b = 94, b E a multiple of 4 floats): eight warps send
+//    the window's 2b rows ([CY | S's lower triangle], then B) as one bulk
+//    copy (cp.async.bulk, the TMA) a row, all in flight, onto one
+//    mbarrier; each row's 16-byte cover lands at its own shift of 0-3
+//    floats, the same for every row; meanwhile warp 0 loads column y and
+//    makes the reflector. The read pass runs from shared memory as
+//    per-thread dots: thread (g, i) sums entries g*L .. g*L+L-1 of
+//    w_i = (v^H CY)_i, p_i = (B v)_i and q_i = (S v)_i (S hermitian from
+//    its lower triangle), starting at offset i mod L and wrapping, so that
+//    with row strides of 4m floats a warp's 32 threads read 32 banks both
+//    in the row dots and the column dots; the G partials are summed in
+//    group order. The update pass reads each entry once from shared memory
+//    and writes it straight back to the strips, coalesced, a [CY | S]
+//    row's two parts one after the other. Three block barriers a chase,
+//    one mbarrier wait, and the hand-over's two barriers.
 //  - streamed (the window does not fit: complex64 beyond b = 94, f32
 //    beyond 128, or b E not a multiple of 4): the window stays in L2.
 //    A chase is
@@ -98,10 +100,9 @@ constexpr int kMaxB = 384;    // keeps the streamed plan under 227 KB
 constexpr int kRB = 8;        // rows whose loads a lane issues together (streamed)
 constexpr int kResMaxB = 128; // the resident instance's widest band
 constexpr int kResChunks = kResMaxB / 32;
-constexpr int kRowsAtOnce = 4;  // window rows whose loads a warp issues together (resident)
-constexpr int kSpanSlots = 3;   // 16-byte chunks a lane loads of a row: 32 x 3 x 4 floats
-                                // cover a [CY | S] row, 2b E + 3 floats (E floats an entry)
-constexpr size_t kHeader = 64;  // the chase's scalars, at the base of shared memory
+constexpr int kCopyWarps = 2 * kResMaxB / 32;  // warps that send a resident window's rows
+constexpr size_t kHeader = 64;     // the chase's scalars and the window's barrier, at the
+constexpr size_t kBarrierAt = 48;  // base of shared memory
 constexpr unsigned kFull = 0xffffffffu;
 
 // ---- scalar arithmetic on float (real) and float2 (complex64) ----------
@@ -209,7 +210,28 @@ struct Scalars {
   T tau, beta, denom;
   int safe;
 };
-static_assert(sizeof(Scalars<float2>) <= kHeader, "header too small");
+static_assert(sizeof(Scalars<float2>) <= kBarrierAt && kBarrierAt + 8 <= kHeader,
+              "header too small");
+
+// ---- the resident window's barrier (an mbarrier the bulk copies complete) --
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void init_barrier(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(kCopyWarps)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+// Wait for the barrier's phase of this parity to complete.
+__device__ __forceinline__ void wait_parity(unsigned long long* bar, unsigned parity) {
+  unsigned ok = 0;
+  while (!ok)
+    asm volatile(
+        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2; "
+        "selp.u32 %0, 1, 0, p; }"
+        : "=r"(ok) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+}
 
 // ---- the resident instance ----------------------------------------------
 
@@ -239,9 +261,10 @@ size_t resident_bytes(int b) {
 // shared memory.
 template <typename T>
 __device__ void chase_resident(T* strips, int b, long long i0, bool first, T* vrec, T* taurec,
-                               unsigned char* smem) {
+                               unsigned char* smem, unsigned& parity) {
   constexpr int E = sizeof(T) / sizeof(float);   // floats an entry
   Scalars<T>& sc = *reinterpret_cast<Scalars<T>*>(smem);
+  unsigned long long* bar = reinterpret_cast<unsigned long long*>(smem + kBarrierAt);
   const int LS = row_floats(2 * b, E), LB = row_floats(b, E), nt = res_nt(b), ng = res_groups(b);
   float* csf = reinterpret_cast<float*>(smem + kHeader);   // [CY | S] row r at csf + r*LS
   float* bsf = csf + b * LS;                                // B row r at bsf + r*LB
@@ -270,52 +293,41 @@ __device__ void chase_resident(T* strips, int b, long long i0, bool first, T* vr
   T* bp = reinterpret_cast<T*>(bsf + sh);            // B[k][i] = bp[k*ldb + i]
   const int ycol = first ? b - 1 : 0;
 
-  // 1. warp 0 sends the loads of column y, the other warps' window loads
-  //    go out meanwhile; warp 0 makes the reflector after its own share.
-  T y[kResChunks];
+  // 1. warps 1 .. kCopyWarps send the window to shared memory as one bulk
+  //    copy (TMA) a row, a row a lane, all 2b rows in flight: each row's
+  //    16-byte cover ([CY | S's lower triangle], b + g + 1 entries, or B;
+  //    up to 3 floats on either side land in the row's margins). Each such
+  //    warp arms the barrier with its rows' bytes. Warp 0 meanwhile loads
+  //    column y and makes the reflector. The proxy fence orders the strips'
+  //    last writes (this block's, and through the hand-over its
+  //    neighbours') before the copies read them.
+  if (warp >= 1 && warp <= kCopyWarps) {
+    asm volatile("fence.proxy.async.global;" ::: "memory");
+    const int g = (warp - 1) * 32 + lane;
+    unsigned nb = 0;
+    if (g < 2 * b) {
+      const T* seg = g < b ? row(g) : row(g) + b;
+      nb = 16u * ((sh + (g < b ? b + g + 1 : b) * E + 3) / 4);
+      const float* to = g < b ? csf + g * LS : bsf + (g - b) * LB;
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+          ::"r"(smem_addr(to)), "l"(reinterpret_cast<const float*>(seg) - sh), "r"(nb),
+          "r"(smem_addr(bar)) : "memory");
+    }
+    nb = __reduce_add_sync(kFull, nb);
+    if (lane == 0)
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                   ::"r"(smem_addr(bar)), "r"(nb) : "memory");
+  }
   if (warp == 0) {
+    T y[kResChunks];
+    float nrm = 0.f;
 #pragma unroll
     for (int k = 0; k < kResChunks; ++k) {
       const int r = lane + 32 * k;
       y[k] = r < b ? ld(row(r) + ycol) : zero<T>();
+      nrm += abs2(y[k]);
     }
-  }
-  // the window as 2b rows, [CY | S's lower triangle] (b + g + 1 entries)
-  // and B, each read whole as the 16-byte chunks that cover it (up to 3
-  // floats on either side are read and land in the row's margins),
-  // kRowsAtOnce rows of a warp in flight together. (An SM pulls whole rows
-  // about 1.5 times as fast as the same window cut into CY, S and B
-  // segments.)
-  for (int g0 = warp; g0 < 2 * b; g0 += kWarps * kRowsAtOnce) {
-    float4 x[kRowsAtOnce][kSpanSlots];
-    int nch[kRowsAtOnce];
-    float* dst[kRowsAtOnce];
-#pragma unroll
-    for (int k = 0; k < kRowsAtOnce; ++k) {
-      const int g = g0 + k * kWarps;
-      const T* seg = g < b ? row(g) : row(g) + b;
-      nch[k] = g < 2 * b ? (sh + (g < b ? b + g + 1 : b) * E + 3) / 4 : 0;
-      dst[k] = g < b ? csf + g * LS : bsf + (g - b) * LB;
-      const float4* span = reinterpret_cast<const float4*>(reinterpret_cast<const float*>(seg) - sh);
-#pragma unroll
-      for (int j = 0; j < kSpanSlots; ++j) {
-        const int ch = 32 * j + lane;
-        x[k][j] = ch < nch[k] ? __ldcg(span + ch) : make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < kRowsAtOnce; ++k) {
-#pragma unroll
-      for (int j = 0; j < kSpanSlots; ++j) {
-        const int ch = 32 * j + lane;
-        if (ch < nch[k]) reinterpret_cast<float4*>(dst[k])[ch] = x[k][j];
-      }
-    }
-  }
-  if (warp == 0) {
-    float nrm = 0.f;
-#pragma unroll
-    for (int k = 0; k < kResChunks; ++k) nrm += abs2(y[k]);
     nrm = warp_allsum(nrm);
     T tau, beta, denom;
     int safe;
@@ -336,6 +348,8 @@ __device__ void chase_resident(T* strips, int b, long long i0, bool first, T* vr
       *taurec = tau;
     }
   }
+  wait_parity(bar, parity);
+  parity ^= 1u;
   __syncthreads();
 
   // 2. read pass from shared memory: thread (g, i) sums k in its group's
@@ -608,26 +622,26 @@ __device__ __forceinline__ void st_release(int* p, int v) {
 }
 
 // Lane w starts step t once lanes w - 1 and w + 1 have finished step t - 1
-// (done[] counts each lane's finished steps).
+// (done[] counts each lane's finished steps). Thread 0 waits for lane
+// w - 1 and thread 32 for lane w + 1, so that the two acquire loads' round
+// trips through L2 overlap; the block barrier then passes both on.
 __device__ __forceinline__ void wait_neighbours(const int* done, int w, int nlanes, int t) {
-  if (threadIdx.x == 0) {
-    if (w > 0)
-      while (ld_acquire(done + w - 1) < t) {
-      }
-    if (w + 1 < nlanes)
-      while (ld_acquire(done + w + 1) < t) {
-      }
-  }
+  if (threadIdx.x == 0 && w > 0)
+    while (ld_acquire(done + w - 1) < t) {
+    }
+  if (threadIdx.x == 32 && w + 1 < nlanes)
+    while (ld_acquire(done + w + 1) < t) {
+    }
   __syncthreads();
 }
 
-// Lane w has finished step t: the block's writes, then the count.
+// Lane w has finished step t: the block's writes, then the count. The
+// release store orders every write of the block before it, since the block
+// barrier orders them before the store (a __threadfence() before it would
+// fence twice).
 __device__ __forceinline__ void publish(int* done, int w, int t) {
   __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    st_release(done + w, t + 1);
-  }
+  if (threadIdx.x == 0) st_release(done + w, t + 1);
 }
 
 template <typename T, bool kResident>
@@ -636,6 +650,11 @@ chase_kernel(T* strips, T* vs, T* taus, int* done, int n, int b, int nrec, int s
              int nlanes, int tsteps) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int nsweeps = n - 2, ncmax = (n + b - 2) / b;
+  unsigned parity = 0;   // the phase of the window's barrier the next chase completes
+  if (kResident) {
+    if (threadIdx.x == 0) init_barrier(reinterpret_cast<unsigned long long*>(smem + kBarrierAt));
+    __syncthreads();
+  }
   for (int t = 0; t < tsteps; ++t) {
     for (int w = blockIdx.x; w < nlanes; w += gridDim.x) {
       wait_neighbours(done, w, nlanes, t);
@@ -647,7 +666,8 @@ chase_kernel(T* strips, T* vs, T* taus, int* done, int n, int b, int nrec, int s
         T* vrec = vs + (row * ncmax + c) * b;
         T* taurec = taus + row * ncmax + c;
         if (kResident) {
-          chase_resident<T>(strips, b, s + 1 + (long long)c * b, c == 0, vrec, taurec, smem);
+          chase_resident<T>(strips, b, s + 1 + (long long)c * b, c == 0, vrec, taurec, smem,
+                            parity);
         } else {
           chase_streamed<T>(strips, b, s + 1 + (long long)c * b, c == 0, vrec, taurec, smem);
         }
@@ -678,7 +698,7 @@ struct Plan {
 template <typename T>
 bool resident_fits(int b) {
   const int e = sizeof(T) / sizeof(float);
-  return b <= kResMaxB && b * e % 4 == 0 && 2 * b * e + 3 <= 128 * kSpanSlots &&
+  return b <= kResMaxB && b * e % 4 == 0 &&
          resident_bytes<T>(b) <= (size_t)device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin);
 }
 

@@ -35,14 +35,10 @@ MIN_BAND = 8
 # 227 KB in complex64
 MAX_BAND = 384
 # csrc/band2tridiag.cu: threads a block, the resident instance's widest
-# band, the 16-byte loads a lane makes of a window row, the header of its
-# shared memory, and the shared memory a block may opt in to on an H100
-# (cudaDevAttrMaxSharedMemoryPerBlockOptin)
+# band, and the header of its shared memory
 KERNEL_THREADS = 512
 RESIDENT_MAX_BAND = 128
-SPAN_SLOTS = 3
 SMEM_HEADER = 64
-SMEM_OPTIN = 232448
 
 band_to_tridiag_strips_ref = band_to_tridiag_strips
 
@@ -70,17 +66,22 @@ def resident_smem_bytes(b: int, dtype) -> int:
             + (4 * b + 3 * groups * b) * 4 * floats)
 
 
-def chase_instance(b: int, dtype) -> str:
-    """The instance the launcher picks at (b, dtype): "resident" where
-    b <= 128, a row of b entries is a whole number of 16-byte chunks
-    (b % 4 == 0 in f32, b % 2 == 0 in complex64), a lane's three 16-byte
-    loads cover a [CY | S] row, and the window fits in the shared memory a
-    block may have (f32 up to b = 128, complex64 up to b = 94), else
-    "streamed"."""
+def device_smem_optin(device=None) -> int:
+    """The shared memory a block may opt in to on a CUDA device
+    (cudaDevAttrMaxSharedMemoryPerBlockOptin, which the launcher reads)."""
+    return torch.cuda.get_device_properties(device).shared_memory_per_block_optin
+
+
+def chase_instance(b: int, dtype, smem_optin: int) -> str:
+    """The instance the launcher picks at (b, dtype) on a device whose
+    blocks may opt in to ``smem_optin`` bytes of shared memory
+    (:func:`device_smem_optin`): "resident" where b <= 128, a row of b
+    entries is a whole number of 16-byte chunks (b % 4 == 0 in f32,
+    b % 2 == 0 in complex64), and the window fits (on an H100: f32 up to
+    b = 128, complex64 up to b = 94), else "streamed"."""
     floats = 2 if dtype.is_complex else 1
     fits = (b <= RESIDENT_MAX_BAND and b * floats % 4 == 0
-            and 2 * b * floats + 3 <= 128 * SPAN_SLOTS
-            and resident_smem_bytes(b, dtype) <= SMEM_OPTIN)
+            and resident_smem_bytes(b, dtype) <= smem_optin)
     return "resident" if fits else "streamed"
 
 

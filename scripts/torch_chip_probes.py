@@ -1,7 +1,7 @@
 """Measurements of the PyTorch/H100 port beside chip_smoke.py's checks, on one CUDA card.
 
     python3 scripts/torch_chip_probes.py accumulation bf16_potrf profile dist_profile \
-        stage4_profile k5_levers[=BASELINE.cu] k3_levers[=BASELINE.cu] stage2 k3_loads
+        stage4_profile k5_levers[=BASELINE.cu] k3_levers[=BASELINE.cu,...] stage2 k3_loads
 
 - ``accumulation``: K2 (``csrc/ksub_tf32x3.cu``) as built, where each
   32-deep k step is summed on the tensor cores from zero and then added
@@ -51,30 +51,34 @@
   on a random band, timed in turns as built and as copies of its source
   (built into ``build/dlaf_tpu_torch/k3_levers/``) patched to leave out
   the chase (``no_chase``: the chain floor, the steps and their
-  synchronisation alone), the step synchronisation (``no_sync``: the grid
-  barrier or the neighbour waits; timing only, the result is wrong), the
-  update pass (``read_only``), the read pass (``update_only``) or both
-  (``load_only``: the resident instance's load wave and reflector), or
-  with clock64() marks (``phases``, also ``load_only+phases``: block 0's
-  time a step in each part of its step, one more launch); the edits are
-  chosen by the design the source has (a grid barrier a step and the
-  window streamed from L2, or neighbour handoffs and the resident
-  instance). The built kernel is also timed at n = 1024, 4096 and 16384
-  (``k3_sizes``). ``=BASELINE.cu`` also builds another tree's
-  ``band2tridiag.cu`` and times it unpatched in the same turns. Each line
-  gives ms, microseconds a wavefront step and ptxas's registers and
-  spills.
+  hand-overs alone), the neighbour waits (``no_sync``; timing only, the
+  result is wrong), the update pass (``read_only``), the read pass
+  (``update_only``) or both (``load_only``: the window's bulk copies and
+  the reflector), to wait for both neighbours from one thread
+  (``serial_wait``) or to fence before the release store
+  (``fence_and_release``), or with clock64() marks (``phases``, also
+  ``load_only+phases``: block 0's time a step in each part of its step,
+  one more launch). The built kernel and some variants are also timed in
+  complex64 at n = 4096 (``k3_c64``: ``eigh_c64``'s shape, the streamed
+  instance), and the built kernel at n = 1024, 4096 and 16384
+  (``k3_sizes``). ``=A.cu[,B.cu...]`` also builds other trees'
+  ``band2tridiag.cu`` and times them unpatched in the same turns
+  (``baseline``, ``baseline2``, ...; the design before the neighbour
+  hand-overs has no ``done`` argument). Each line gives ms, microseconds a
+  wavefront step and ptxas's registers and spills.
 - ``k3_loads``: ``scripts/torch_k3_loads.cu`` built and run: how fast one
   SM moves a K3 window (n = 8192, b = 128, f32) between L2 and shared
-  memory, by access shape (4-byte or 16-byte loads of whole rows, 16-byte
-  loads of CY, S and B segments, 4-byte or 16-byte stores), on one block
-  and on 22 (K3's lanes at n = 8192).
+  memory, by access shape (4-byte or 16-byte loads of whole rows through
+  registers, 16-byte loads of CY, S and B segments, ``cp.async.cg`` copies
+  of whole rows' 16-byte chunks, one ``cp.async.bulk`` copy a row; 4-byte,
+  16-byte or bulk stores), on one block and on 22 (K3's lanes at
+  n = 8192).
 - ``stage2``: stage 2 (band to tridiagonal, through K3) as the entry
-  points run it, on a random f32 band of width 128: ``eigh``'s at
-  n = 8192 (``band_to_tridiag_auto`` on the dense band) and
-  ``eigh_large``'s at n = 32768 (``packed_to_strips`` and one recorded
-  chase), a warm-up and three timed runs each, host clock after a
-  synchronisation.
+  points run it, on a random band of width 128: ``eigh``'s at n = 8192
+  f32 and n = 4096 complex64 (``eigh_c64``; ``band_to_tridiag_auto`` on
+  the dense band) and ``eigh_large``'s at n = 32768 f32
+  (``packed_to_strips`` and one recorded chase), a warm-up and three
+  timed runs each, host clock after a synchronisation.
 
 Each probe prints JSON lines; the last line is the card's name and
 power limit as nvidia-smi gives them. Runs only where a CUDA device is.
@@ -279,187 +283,196 @@ def probe_k5_levers(baseline: str | None = None) -> None:
         del want, x
 
 
-# K3's variants, (anchor in band2tridiag.cu, replacement), by design: "grid"
-# is one cooperative grid barrier a wavefront step with the window streamed
-# from L2 (the design before the neighbour handoffs), "handoff" the
-# neighbour handoffs with the window resident in shared memory
+# K3's variants: (anchor in band2tridiag.cu, replacement) lists
 K3_LEVER_EDITS = {
-    "grid": {
-        "no_chase": [("      chase<T>(strips, b, s + 1", "      if (false) chase<T>(strips, b, s + 1")],
-        "no_sync": [("    grid.sync();\n", "")],
-        "read_only": [("  const T ctau = conj_(tau);\n  for (int ch = 0;",
-                       "  const T ctau = conj_(tau);\n  if (false) for (int ch = 0;")],
-        "update_only": [("  for (int ch = 0; ch < nch; ++ch) {\n    const int c = ch * 32 + lane;\n"
-                         "    const bool cin = c < b;\n    const T vc =",
-                         "  if (false) for (int ch = 0; ch < nch; ++ch) {\n    const int c = ch * 32 + lane;\n"
-                         "    const bool cin = c < b;\n    const T vc =")],
-    },
-    "handoff": {
-        "no_chase": [("        if (kResident) {\n", "        if (false) {\n"),
-                     ("        } else {\n          chase_streamed", "        } else if (false) {\n          chase_streamed")],
-        "no_sync": [("      wait_neighbours(done, w, nlanes, t);\n", "")],
-        "read_only": [("  for (int r = warp; r < 2 * b; r += kWarps) {",
-                       "  for (int r = warp; false; r += kWarps) {")],
-        "update_only": [("  if (g < ng && i < b) {", "  if (false) {")],
-        # block 0 (lane 0, the first in the chain) sums clock64() between
-        # marks of its thread 0 (K3_PHASES)
-        "phases": [
-            ("#include <stdint.h>\n",
-             "#include <stdint.h>\n__device__ unsigned long long k3_acc[10], k3_last;\n"
-             "#define K3_MARK(i) if (blockIdx.x == 0 && threadIdx.x == 0) { const unsigned long "
-             "long now_ = clock64(); k3_acc[i] += now_ - k3_last; k3_last = now_; }\n"),
-            ("  const int nsweeps = n - 2, ncmax = (n + b - 2) / b;\n",
-             "  const int nsweeps = n - 2, ncmax = (n + b - 2) / b;\n"
-             "  if (blockIdx.x == 0 && threadIdx.x == 0) k3_last = clock64();\n"),
-            ("      wait_neighbours(done, w, nlanes, t);\n",
-             "      K3_MARK(0);\n      wait_neighbours(done, w, nlanes, t);\n      K3_MARK(1);\n"),
-            ("      publish(done, w, t);\n",
-             "      K3_MARK(5);\n      publish(done, w, t);\n      K3_MARK(6);\n"),
-            ("      *taurec = tau;\n    }\n  }\n  __syncthreads();\n",
-             "      *taurec = tau;\n    }\n  }\n  K3_MARK(8);\n  __syncthreads();\n  K3_MARK(2);\n"),
-            ("  if (warp == 0) {\n    float nrm = 0.f;",
-             "  K3_MARK(7);\n  if (warp == 0) {\n    float nrm = 0.f;"),
-            ("    part[(2 * ng + g) * b + i] = ap;\n  }\n  __syncthreads();\n",
-             "    part[(2 * ng + g) * b + i] = ap;\n  }\n  __syncthreads();\n  K3_MARK(3);\n"),
-            ("    w[g * b + i] = acc;\n  }\n  __syncthreads();\n",
-             "    w[g * b + i] = acc;\n  }\n  __syncthreads();\n  K3_MARK(4);\n"),
-            ("  for (int r = warp; r < 2 * b; r += kWarps) {",
-             "  K3_MARK(9);\n  for (int r = warp; r < 2 * b; r += kWarps) {"),
-            ('extern "C" const char* dlaf_cuda_error_string(int e) {',
-             'extern "C" int dlaf_k3_marks(void* out) {\n'
-             '  cudaMemcpyFromSymbol(out, k3_acc, sizeof(k3_acc));\n'
-             '  unsigned long long z[10] = {0};\n'
-             '  cudaMemcpyToSymbol(k3_acc, z, sizeof(z));\n'
-             '  return (int)cudaGetLastError();\n}\n\n'
-             'extern "C" const char* dlaf_cuda_error_string(int e) {'),
-        ],
-    },
+    "no_chase": [("        if (kResident) {\n", "        if (false) {\n"),
+                 ("        } else {\n          chase_streamed", "        } else if (false) {\n          chase_streamed")],
+    "no_sync": [("      wait_neighbours(done, w, nlanes, t);\n", "")],
+    "read_only": [("  for (int r = warp; r < 2 * b; r += kWarps) {",
+                   "  for (int r = warp; false; r += kWarps) {")],
+    "update_only": [("  if (g < ng && i < b) {", "  if (false) {")],
+    # the neighbour wait by thread 0 alone, its two acquire loads one after
+    # the other
+    "serial_wait": [
+        ("  if (threadIdx.x == 0 && w > 0)\n    while (ld_acquire(done + w - 1) < t) {\n    }\n"
+         "  if (threadIdx.x == 32 && w + 1 < nlanes)\n",
+         "  if (threadIdx.x == 0 && w > 0)\n    while (ld_acquire(done + w - 1) < t) {\n    }\n"
+         "  if (threadIdx.x == 0 && w + 1 < nlanes)\n")],
+    # the count published after a __threadfence() too
+    "fence_and_release": [
+        ("  if (threadIdx.x == 0) st_release(done + w, t + 1);",
+         "  if (threadIdx.x == 0) {\n    __threadfence();\n    st_release(done + w, t + 1);\n  }")],
+    # block 0 (lane 0, the first in the chain) sums clock64() between
+    # marks of its thread 0 (K3_PHASES)
+    "phases": [
+        ("#include <stdint.h>\n",
+         "#include <stdint.h>\n__device__ unsigned long long k3_acc[10], k3_last;\n"
+         "#define K3_MARK(i) if (blockIdx.x == 0 && threadIdx.x == 0) { const unsigned long "
+         "long now_ = clock64(); k3_acc[i] += now_ - k3_last; k3_last = now_; }\n"),
+        ("  const int nsweeps = n - 2, ncmax = (n + b - 2) / b;\n",
+         "  const int nsweeps = n - 2, ncmax = (n + b - 2) / b;\n"
+         "  if (blockIdx.x == 0 && threadIdx.x == 0) k3_last = clock64();\n"),
+        ("      wait_neighbours(done, w, nlanes, t);\n",
+         "      K3_MARK(0);\n      wait_neighbours(done, w, nlanes, t);\n      K3_MARK(1);\n"),
+        ("      publish(done, w, t);\n",
+         "      K3_MARK(5);\n      publish(done, w, t);\n      K3_MARK(6);\n"),
+        ("      *taurec = tau;\n    }\n  }\n  wait_parity(bar, parity);\n  parity ^= 1u;\n"
+         "  __syncthreads();\n",
+         "      *taurec = tau;\n    }\n  }\n  K3_MARK(8);\n  wait_parity(bar, parity);\n"
+         "  K3_MARK(7);\n  parity ^= 1u;\n  __syncthreads();\n  K3_MARK(2);\n"),
+        ("    part[(2 * ng + g) * b + i] = ap;\n  }\n  __syncthreads();\n",
+         "    part[(2 * ng + g) * b + i] = ap;\n  }\n  __syncthreads();\n  K3_MARK(3);\n"),
+        ("    w[g * b + i] = acc;\n  }\n  __syncthreads();\n",
+         "    w[g * b + i] = acc;\n  }\n  __syncthreads();\n  K3_MARK(4);\n"),
+        ("  for (int r = warp; r < 2 * b; r += kWarps) {",
+         "  K3_MARK(9);\n  for (int r = warp; r < 2 * b; r += kWarps) {"),
+        ('extern "C" const char* dlaf_cuda_error_string(int e) {',
+         'extern "C" int dlaf_k3_marks(void* out) {\n'
+         '  cudaMemcpyFromSymbol(out, k3_acc, sizeof(k3_acc));\n'
+         '  unsigned long long z[10] = {0};\n'
+         '  cudaMemcpyToSymbol(k3_acc, z, sizeof(z));\n'
+         '  return (int)cudaGetLastError();\n}\n\n'
+         'extern "C" const char* dlaf_cuda_error_string(int e) {'),
+    ],
 }
 K3_SIZES = (1024, 4096, 16384)   # the built kernel at these n too (k3_sizes lines)
-# variants built from several edit lists of K3_LEVER_EDITS["handoff"]
-# variants built from several edit lists of K3_LEVER_EDITS["handoff"]
+# variants built from several edit lists of K3_LEVER_EDITS, in this order
 K3_COMPOSED = {"load_only": ("read_only", "update_only"),
-               "load_only+phases": ("phases", "read_only", "update_only")}
-K3_PHASES = ("step_loop", "wait", "barrier_after_reflector", "read_pass", "partial_sums",
-             "update_rows_warp0", "end_barrier_fence_release", "window_loads_warp0",
-             "reflector_warp0", "alpha_and_column_caches")
-# the C interface with and without the lanes' step counts: strips, vs,
-# taus, [done,] n, b, nrec, sweep_lo, is_complex, stream; the plan's n, b,
-# is_complex, out
+               "load_only+phases": ("phases", "read_only", "update_only"),
+               "no_chase+serial_wait": ("no_chase", "serial_wait"),
+               "no_chase+fence_and_release": ("no_chase", "fence_and_release")}
+K3_PHASES = ("step_loop", "wait", "barrier_after_window", "read_pass", "partial_sums",
+             "update_rows_warp0", "end_barrier_fence_release", "window_landing_after_reflector",
+             "y_and_reflector_warp0", "alpha_and_column_caches")
+# also timed in complex64 at K3_C64
+K3_C64_VARIANTS = ("built", "no_chase", "no_sync", "serial_wait", "fence_and_release",
+                   "no_chase+serial_wait")
+# the C interface with and without the lanes' step counts (the design before
+# the neighbour handoffs had none): strips, vs, taus, [done,] n, b, nrec,
+# sweep_lo, is_complex, stream; the plan's n, b, is_complex, out
 K3_SIGNATURES = {
     False: {"dlaf_band2tridiag": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
             "dlaf_band2tridiag_plan": [ctypes.c_int] * 3 + [ctypes.c_void_p]},
     True: {"dlaf_band2tridiag": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
            "dlaf_band2tridiag_plan": [ctypes.c_int] * 3 + [ctypes.c_void_p]},
 }
+K3_C64 = (4096, 128)   # complex64 K3 at eigh_c64's (n, b): the streamed instance
 
 
-def _k3_design(src: str):
-    """(the design whose anchors ``src`` has, or None; whether its C
-    interface takes the lanes' step counts)."""
-    for design, variants in K3_LEVER_EDITS.items():
-        if all(src.count(old) == 1 for edits in variants.values() for old, _ in edits):
-            return design, "void* done" in src
-    return None, "void* done" in src
+def _k3_band_strips(g, n, b, dtype):
+    """Strips of a random hermitian band of width ``b``."""
+    a = torch.triu(gen.random_hermitian(g, n, dtype), -b)
+    return band_to_strips(a, b)
 
 
-def probe_k3_levers(baseline: str | None = None) -> None:
+def probe_k3_levers(baselines: str | None = None) -> None:
     n, b = 8192, 128
     src = (_build.CSRC / "band2tridiag.cu").read_text()
-    design, with_done = _k3_design(src)
     variants = {"built": (src, [])}
-    edits_of = K3_LEVER_EDITS.get(design, {})
-    variants.update({tag: (src, edits) for tag, edits in edits_of.items()})
-    if design == "handoff":
-        variants.update({tag: (src, [e for part in parts for e in edits_of[part]])
-                         for tag, parts in K3_COMPOSED.items()})
-    libs = _patched_libraries("band2tridiag", variants, "k3_levers", K3_SIGNATURES[with_done])
-    designs = {tag: (design, with_done) for tag in libs}
-    if baseline:
-        bsrc = open(baseline).read()
-        designs["baseline"] = _k3_design(bsrc)
-        libs.update(_patched_libraries("band2tridiag", {"baseline": (bsrc, [])}, "k3_levers",
-                                       K3_SIGNATURES[designs["baseline"][1]]))
+    variants.update({tag: (src, edits) for tag, edits in K3_LEVER_EDITS.items()})
+    variants.update({tag: (src, [e for part in parts for e in K3_LEVER_EDITS[part]])
+                     for tag, parts in K3_COMPOSED.items()})
+    libs = _patched_libraries("band2tridiag", variants, "k3_levers", K3_SIGNATURES[True])
+    with_done = {tag: True for tag in libs}
+    sources = {}
+    for i, path in enumerate(baselines.split(",") if baselines else []):
+        tag = "baseline" if i == 0 else f"baseline{i + 1}"
+        bsrc = open(path).read()
+        sources[tag], with_done[tag] = path, "void* done" in bsrc
+        libs.update(_patched_libraries("band2tridiag", {tag: (bsrc, [])}, "k3_levers",
+                                       K3_SIGNATURES[with_done[tag]]))
     g = torch.Generator(device=DEV).manual_seed(10)
-    a = torch.triu(gen.random_hermitian(g, n, torch.float32), -b)
-    strips = band_to_strips(a, b)
-    del a
-    ncmax = -(-(n - 1) // b)
-    work = torch.empty_like(strips)
-    vs = torch.zeros((n - 1, ncmax, b), device=DEV)
-    taus = torch.zeros((n - 1, ncmax), device=DEV)
     flags = torch.zeros(1 << 16, dtype=torch.int32, device=DEV)
-    steps = 3 * (n - 3) + 1
 
-    def launch(tag):
+    def launch(tag, work, strips, vs, taus, n, cplx=0):
         lib = libs[tag][0]
         work.copy_(strips)
         flags.zero_()
         ptrs = [work.data_ptr(), vs.data_ptr(), taus.data_ptr()]
-        if designs[tag][1]:
+        if with_done[tag]:
             ptrs.append(flags.data_ptr())
         start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
-        rc = lib.dlaf_band2tridiag(*ptrs, n, b, n - 2, 0, 0, _build.stream_of(work))
+        rc = lib.dlaf_band2tridiag(*ptrs, n, b, n - 2, 0, cplx, _build.stream_of(work))
         stop.record()
         _build.check(rc, lib, f"k3_levers {tag}")
         torch.cuda.synchronize()
         return start.elapsed_time(stop)
 
+    def record(n, dtype):
+        ncmax = -(-(n - 1) // b)
+        return (torch.zeros((n - 1, ncmax, b), dtype=dtype, device=DEV),
+                torch.zeros((n - 1, ncmax), dtype=dtype, device=DEV))
+
+    strips = _k3_band_strips(g, n, b, torch.float32)
+    work = torch.empty_like(strips)
+    vs, taus = record(n, torch.float32)
+    steps = 3 * (n - 3) + 1
     out = {}
     for tag in libs:   # warm-up, and each variant's d and e beside the built kernel's
-        launch(tag)
+        launch(tag, work, strips, vs, taus, n)
         out[tag] = strips_extract_tridiag(work, n, b)
     times = {tag: [] for tag in libs}
     for tag in list(libs) + list(reversed(libs)):
         for _ in range(2):
-            times[tag].append(launch(tag))
+            times[tag].append(launch(tag, work, strips, vs, taus, n))
     for tag in [t for t in libs if "phases" in t]:   # one more launch, its clock64() sums
         lib = libs[tag][0]
         lib.dlaf_k3_marks.argtypes = [ctypes.c_void_p]
         lib.dlaf_k3_marks.restype = ctypes.c_int
         marks = (ctypes.c_ulonglong * len(K3_PHASES))()
         lib.dlaf_k3_marks(ctypes.addressof(marks))
-        ms = launch(tag)
+        ms = launch(tag, work, strips, vs, taus, n)
         _build.check(lib.dlaf_k3_marks(ctypes.addressof(marks)), lib, "k3 marks")
         cycles = [marks[i] for i in range(len(K3_PHASES))]
         us_per_cycle = ms * 1e3 / sum(cycles)
         phases = {name: c / steps * us_per_cycle for name, c in zip(K3_PHASES, cycles)}
         emit("k3_phases", variant=tag, n=n, b=b, dtype="float32", ms=ms, us_per_step=phases,
              clock_ghz=1e-3 / us_per_cycle, block=0)
-    for n2 in K3_SIZES:   # the built kernel at other n: µs a step against the strips' size
-        a2 = torch.triu(gen.random_hermitian(g, n2, torch.float32), -b)
-        s2 = band_to_strips(a2, b)
-        del a2
-        v2 = torch.zeros((n2 - 1, -(-(n2 - 1) // b), b), device=DEV)
-        t2 = torch.zeros((n2 - 1, -(-(n2 - 1) // b)), device=DEV)
-        lib = libs["built"][0]
-        ms2 = []
-        for _ in range(3):
-            w2 = s2.clone()
-            flags.zero_()
-            start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            start.record()
-            rc = lib.dlaf_band2tridiag(w2.data_ptr(), v2.data_ptr(), t2.data_ptr(), flags.data_ptr(),
-                                       n2, b, n2 - 2, 0, 0, _build.stream_of(w2))
-            stop.record()
-            _build.check(rc, lib, "k3 sizes")
-            torch.cuda.synchronize()
-            ms2.append(start.elapsed_time(stop))
-        emit("k3_sizes", n=n2, b=b, strips_mb=s2.numel() * 4 / 2**20, ms=min(ms2[1:]),
-             us_per_step=min(ms2[1:]) * 1e3 / (3 * (n2 - 3) + 1))
-        del s2, v2, t2, w2
     for tag, (lib, ptxas) in libs.items():
         plan = (ctypes.c_int * 4)()
         _build.check(lib.dlaf_band2tridiag_plan(n, b, 0, ctypes.addressof(plan)), lib, "plan")
         d, e = out[tag]
         ms = min(times[tag])
-        emit("k3_levers", variant=tag, design=designs[tag][0], n=n, b=b, dtype="float32",
+        emit("k3_levers", variant=tag, source=sources.get(tag, "built"), n=n, b=b, dtype="float32",
              ms=ms, ms_turns=times[tag], us_per_step=ms * 1e3 / steps, wavefront_steps=steps,
              lanes=plan[0], blocks=plan[1], plan=list(plan),
              d_vs_built=float((d - out["built"][0]).abs().max()),
              abs_e_vs_built=float((e.abs() - out["built"][1].abs()).abs().max()),
              finite=bool(torch.isfinite(d).all() and torch.isfinite(e).all()), ptxas=ptxas)
+    del strips, work, vs, taus, out
+    # complex64 at eigh_c64's (n, b): K3_C64_VARIANTS and the baselines in turns
+    n2 = K3_C64[0]
+    s2 = _k3_band_strips(g, n2, b, torch.complex64)
+    w2 = torch.empty_like(s2)
+    v2, t2 = record(n2, torch.complex64)
+    tags = list(K3_C64_VARIANTS) + list(sources)
+    res = {}
+    for tag in tags:
+        launch(tag, w2, s2, v2, t2, n2, 1)
+        res[tag] = strips_extract_tridiag(w2, n2, b)
+    ms2 = {tag: [] for tag in tags}
+    for tag in tags + tags[::-1] + tags + tags[::-1]:
+        ms2[tag].append(launch(tag, w2, s2, v2, t2, n2, 1))
+    steps2 = 3 * (n2 - 3) + 1
+    for tag in tags:
+        plan = (ctypes.c_int * 4)()
+        lib = libs[tag][0]
+        _build.check(lib.dlaf_band2tridiag_plan(n2, b, 1, ctypes.addressof(plan)), lib, "plan")
+        emit("k3_c64", variant=tag, source=sources.get(tag, "built"), n=n2, b=b,
+             dtype="complex64", ms=min(ms2[tag]),
+             ms_turns=ms2[tag], us_per_step=min(ms2[tag]) * 1e3 / steps2,
+             lanes=plan[0], blocks=plan[1], plan=list(plan),
+             d_vs_built=float((res[tag][0] - res["built"][0]).abs().max()))
+    del s2, w2, v2, t2
+    for n3 in K3_SIZES:   # the built kernel at other n: µs a step against the strips' size
+        s3 = _k3_band_strips(g, n3, b, torch.float32)
+        w3 = torch.empty_like(s3)
+        v3, t3 = record(n3, torch.float32)
+        ms3 = [launch("built", w3, s3, v3, t3, n3) for _ in range(3)]
+        emit("k3_sizes", n=n3, b=b, strips_mb=s3.numel() * 4 / 2**20, ms=min(ms3[1:]),
+             us_per_step=min(ms3[1:]) * 1e3 / (3 * (n3 - 3) + 1))
+        del s3, w3, v3, t3
 
 
 def probe_k3_loads() -> None:
@@ -480,11 +493,12 @@ def probe_k3_loads() -> None:
 def probe_stage2() -> None:
     from dlaf_tpu_torch.algos.eigensolver.band2tridiag import band_to_tridiag_auto
     b = 128
-    for n, entry in ((8192, "eigh"), (32768, "eigh_large")):
+    for n, entry, dtype in ((8192, "eigh", torch.float32), (32768, "eigh_large", torch.float32),
+                            (4096, "eigh_c64", torch.complex64)):
         g = torch.Generator(device=DEV).manual_seed(11)
-        band = torch.randn((n, n), generator=g, device=DEV)
-        band = torch.triu(torch.tril(band + band.T), -b)
-        if entry == "eigh":
+        band = torch.randn((n, n), generator=g, device=DEV, dtype=dtype)
+        band = torch.triu(torch.tril(band + band.mH), -b)
+        if entry != "eigh_large":
             def stage2():
                 return band_to_tridiag_auto(band, b)
         else:
@@ -501,8 +515,8 @@ def probe_stage2() -> None:
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
             del out
-        emit("stage2", entry=entry, n=n, b=b, dtype="float32", seconds=secs[1:],
-             warmup_seconds=secs[0])
+        emit("stage2", entry=entry, n=n, b=b, dtype=str(dtype).replace("torch.", ""),
+             seconds=secs[1:], warmup_seconds=secs[0])
         del band
 
 

@@ -10,12 +10,21 @@
 //   rows_4b      the window's 2b rows ([CY | S's lower triangle], B) in
 //                4-byte loads, 4 rows x 8 loads a lane in flight
 //   rows_16b     the same rows as the 16-byte chunks that cover them, 4
-//                rows x 3 chunks a lane in flight (K3's resident loads)
+//                rows x 3 chunks a lane in flight
 //   segments_16b the same window cut into CY, S and B row segments, 16-byte
 //                chunks, 8 segments x 2 chunks a lane in flight
 //   store_4b     the rows written back, 4-byte stores, then a fence
 //   store_16b    the same in 16-byte stores (the rows' 16-byte-aligned
 //                cover; timing only)
+//   rows_cp_async_16b  the rows' 16-byte chunks as cp.async.cg copies
+//                straight into shared memory, every chunk of the window in
+//                flight at once (no register staging), then one wait
+//   rows_bulk    each row's 16-byte cover as one cp.async.bulk (TMA) copy,
+//                a row a thread, all 2b rows in flight, completing on one
+//                mbarrier (K3's resident loads)
+//   store_bulk   the rows' 16-byte covers written back as cp.async.bulk
+//                copies from shared memory, then a wait and a fence
+//                (timing only)
 // Build and run (scripts/torch_chip_probes.py k3_loads does both):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -o k3_loads scripts/torch_k3_loads.cu
 //   ./k3_loads
@@ -36,11 +45,21 @@ __device__ __forceinline__ float* row_of(float* strips, long long i0, int g) {
   return strips + (i0 + g) * 5LL * kB - strip * kB + 3LL * kB + (i0 - kB);
 }
 
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
 __global__ void __launch_bounds__(kThreads, 1) window(float* strips, int mode, int reps, float* sink) {
   extern __shared__ __align__(16) float sm[];
+  __shared__ __align__(8) unsigned long long bar;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   float* bs = sm + kB * kLS;
   float acc = 0.f;
+  if (tid == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(&bar)) : "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+  __syncthreads();
   for (int it = 0; it < reps; ++it) {
     const long long i0 = (it % 4000) + 1 + 3LL * kB * blockIdx.x;
     const int sh = (int)((reinterpret_cast<uintptr_t>(row_of(strips, i0, 0)) >> 2) & 3);
@@ -109,6 +128,48 @@ __global__ void __launch_bounds__(kThreads, 1) window(float* strips, int mode, i
           for (int j = 0; j < 2; ++j)
             if (32 * j + lane < nch[k]) reinterpret_cast<float4*>(dst[k])[32 * j + lane] = x[k][j];
       }
+    } else if (mode == 5) {
+      for (int g = warp; g < 2 * kB; g += kWarps) {
+        const float* seg = g < kB ? row_of(strips, i0, g) : row_of(strips, i0, g) + kB;
+        const int nch = (sh + (g < kB ? kB + g + 1 : kB) + 3) / 4;
+        float* dst = g < kB ? sm + g * kLS : bs + (g - kB) * kLB;
+        const float4* span = reinterpret_cast<const float4*>(seg - sh);
+        for (int ch = lane; ch < nch; ch += 32)
+          asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst + 4 * ch)),
+                       "l"(span + ch) : "memory");
+      }
+      asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
+    } else if (mode == 6) {
+      if (tid < 2 * kB) {
+        const int g = tid;
+        const float* seg = g < kB ? row_of(strips, i0, g) : row_of(strips, i0, g) + kB;
+        const unsigned bytes = 16u * ((sh + (g < kB ? kB + g + 1 : kB) + 3) / 4);
+        float* dst = g < kB ? sm + g * kLS : bs + (g - kB) * kLB;
+        asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;"
+                     ::"r"(smem_addr(&bar)), "r"(bytes) : "memory");
+        asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+                     ::"r"(smem_addr(dst)), "l"(seg - sh), "r"(bytes), "r"(smem_addr(&bar)) : "memory");
+      }
+      __syncthreads();
+      if (tid == 0)
+        asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(&bar)) : "memory");
+      unsigned ok = 0;
+      while (!ok)
+        asm volatile("{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2; selp.u32 %0, 1, 0, p; }"
+                     : "=r"(ok) : "r"(smem_addr(&bar)), "r"((unsigned)(it & 1)) : "memory");
+    } else if (mode == 7) {
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      __syncthreads();
+      if (tid < 2 * kB) {
+        const int g = tid;
+        float* seg = g < kB ? row_of(strips, i0, g) : row_of(strips, i0, g) + kB;
+        const unsigned bytes = 16u * ((sh + (g < kB ? kB + g + 1 : kB) + 3) / 4);
+        const float* src = g < kB ? sm + g * kLS : bs + (g - kB) * kLB;
+        asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+                     ::"l"(seg - sh), "r"(smem_addr(src)), "r"(bytes) : "memory");
+        asm volatile("cp.async.bulk.commit_group;\ncp.async.bulk.wait_group 0;" ::: "memory");
+      }
+      __threadfence();
     } else if (mode == 3) {
       for (int g = warp; g < 2 * kB; g += kWarps) {
         const int len = g < kB ? kB + g + 1 : kB;
@@ -137,7 +198,8 @@ __global__ void __launch_bounds__(kThreads, 1) window(float* strips, int mode, i
 }  // namespace
 
 int main() {
-  const char* names[] = {"rows_4b", "rows_16b", "segments_16b", "store_4b", "store_16b"};
+  const char* names[] = {"rows_4b",   "rows_16b",          "segments_16b", "store_4b",
+                         "store_16b", "rows_cp_async_16b", "rows_bulk",    "store_bulk"};
   const int reps = 2000, lanes = 22;
   const size_t nfloats = (size_t)(kN / kB + 3 + 3 * lanes + 32) * kB * 5 * kB;
   float *strips, *sink;
@@ -145,7 +207,7 @@ int main() {
   cudaMemset(strips, 0, nfloats * 4);
   const int smem = (kB * (kLS + kLB)) * 4;
   cudaFuncSetAttribute(window, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  for (int mode = 0; mode < 5; ++mode)
+  for (int mode = 0; mode < 8; ++mode)
     for (int blocks : {1, lanes}) {
       cudaEvent_t a, b;
       cudaEventCreate(&a);

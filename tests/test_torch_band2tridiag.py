@@ -239,7 +239,8 @@ def test_chase_plan_cuda(dtype):
     co-resident blocks where they do not."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the Hopper kernels run only on the card")
-    assert kb2t.chase_plan(1024, 128, dtype)[:3] == (3, 3, kb2t.chase_instance(128, dtype))
+    assert kb2t.chase_plan(1024, 128, dtype)[:3] == \
+        (3, 3, kb2t.chase_instance(128, dtype, kb2t.device_smem_optin()))
     lanes, grid, *_ = kb2t.chase_plan(1 << 20, 8, dtype)
     assert lanes == (-(-((1 << 20) - 1) // 8) - 1) // 3 + 1 and 1 <= grid < lanes
 

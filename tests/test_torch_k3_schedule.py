@@ -157,7 +157,10 @@ def test_rule_order_is_bit_equal_to_the_sequential_chase(n, b, blocks, dtype):
     assert np.abs(got[3].numpy() - np.asarray(jtaus)).max() <= bound
 
 
-# the (b, dtype) of chip_smoke.py's K3 cases, and the instance each takes
+# the shared memory an H100's block may opt in to
+# (cudaDevAttrMaxSharedMemoryPerBlockOptin), which the launcher reads there
+H100_SMEM_OPTIN = 232448
+# the (b, dtype) of chip_smoke.py's K3 cases, and the instance each takes on an H100
 INSTANCES = [(128, torch.float32, "resident"), (128, torch.complex64, "streamed"),
              (16, torch.float32, "resident"), (160, torch.float32, "streamed"),
              (32, torch.float32, "resident"), (64, torch.complex64, "resident"),
@@ -167,9 +170,18 @@ INSTANCES = [(128, torch.float32, "resident"), (128, torch.complex64, "streamed"
 
 @pytest.mark.parametrize("b,dtype,instance", INSTANCES)
 def test_instance_rule(b, dtype, instance):
-    assert kb2t.chase_instance(b, dtype) == instance
-    fits = kb2t.resident_smem_bytes(b, dtype) <= kb2t.SMEM_OPTIN
+    assert kb2t.chase_instance(b, dtype, H100_SMEM_OPTIN) == instance
+    fits = kb2t.resident_smem_bytes(b, dtype) <= H100_SMEM_OPTIN
     assert (instance == "resident") <= fits
+
+
+@pytest.mark.parametrize("b,dtype", [(128, torch.float32), (64, torch.complex64)])
+def test_instance_rule_follows_the_device_limit(b, dtype):
+    """A device whose blocks may have fewer bytes than the window takes the
+    streamed instance; one byte less than the window is enough."""
+    need = kb2t.resident_smem_bytes(b, dtype)
+    assert kb2t.chase_instance(b, dtype, need) == "resident"
+    assert kb2t.chase_instance(b, dtype, need - 1) == "streamed"
 
 
 def test_resident_bytes_follow_the_plan():
@@ -182,8 +194,9 @@ def test_resident_bytes_follow_the_plan():
         64 + 128 * (264 + 136) * 4 + (4 * 128 + 3 * 4 * 128) * 4
     assert kb2t.resident_smem_bytes(94, torch.complex64) == \
         64 + 94 * (384 + 196) * 4 + (4 * 94 + 3 * 5 * 94) * 8
-    assert max(b for b in range(8, 385) if kb2t.chase_instance(b, torch.float32) == "resident") == 128
-    assert max(b for b in range(8, 385) if kb2t.chase_instance(b, torch.complex64) == "resident") == 94
+    for dtype, widest in ((torch.float32, 128), (torch.complex64, 94)):
+        assert max(b for b in range(8, 385)
+                   if kb2t.chase_instance(b, dtype, H100_SMEM_OPTIN) == "resident") == widest
 
 
 @pytest.mark.parametrize("b,dtype,instance", INSTANCES)
