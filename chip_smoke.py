@@ -68,6 +68,21 @@ card (``spawn_grid``) at n = 8192, L and U, K6 launched on every rank, the
 gathered factors against the 1x1 grid's entry by entry, ``cholesky_info``
 on a planted pivot and the distributed miniapp with ``--check``.
 
+The rest of the local API, in f32 with nb = 512: every side/uplo/trans/
+diag case of ``trsm`` and ``trmm`` at (2048, 1024) against f64; ``trsm``
+and ``trmm`` (side L, uplo L) at A 32768 x 32768, B 32768 x 16384 and
+``trsm`` on the right once, ``hegst`` at n = 32768 against the K1 factor
+of an SPD B, and ``herk`` U/C (alpha -1, beta 1) at n = k = 16384 through
+K2 and on the plain route, each timed beside a library yardstick and held
+to f64 beside a planted fault (a skipped leaf solve or leaf multiply, K2
+cut to one TF32 term); then ``eigh_gen`` at n = 8192, band 128, timed
+whole and by stage (potrf through K1, the two solves of ``hegst``, ``eigh``
+through K3, the back-solve; the staged run bit-equal to the entry point's)
+beside the library route, its residual and B-orthogonality gates beside a
+perturbed factor of B, and the triangular solver, triangular
+multiplication, gen_to_std and generalized eigensolver miniapps with
+``--check``.
+
 Every phase prints one JSON line. Any failed check raises, so the exit code
 is not 0; nothing catches it. The last lines are the card's
 ``nvidia-smi`` name and power limit, one JSON line with the kernels, and
@@ -107,10 +122,13 @@ from dlaf_tpu_torch.algos.eigensolver.tridiag_dc import tridiag_eigh  # noqa: E4
 from dlaf_tpu_torch.comm.launch import spawn_grid  # noqa: E402
 from dlaf_tpu_torch.matrix import generators as gen  # noqa: E402
 from dlaf_tpu_torch.matrix.dist_matrix import global_indices  # noqa: E402
-from dlaf_tpu_torch.miniapps import miniapp_cholesky, miniapp_eigensolver  # noqa: E402
-from dlaf_tpu_torch.ops import leaf  # noqa: E402
+from dlaf_tpu_torch.api.local import _pad_zero, _tri_operand  # noqa: E402
+from dlaf_tpu_torch.miniapps import (  # noqa: E402
+    miniapp_cholesky, miniapp_eigensolver, miniapp_gen_eigensolver, miniapp_gen_to_std,
+    miniapp_triangular_multiplication, miniapp_triangular_solver)
+from dlaf_tpu_torch.ops import blocked, leaf  # noqa: E402
 from dlaf_tpu_torch.ops.kernels import _build  # noqa: E402
-from dlaf_tpu_torch.ops.core import symmetrize_tri  # noqa: E402
+from dlaf_tpu_torch.ops.core import ct, hermitian_from_tri_, symmetrize_tri  # noqa: E402
 from dlaf_tpu_torch.ops.kernels.potrf import (  # noqa: E402
     NB_MAX, factor_deviation, potrf_tile, potrf_tile_plan, potrf_tile_ref)
 from dlaf_tpu_torch.ops.householder import householder_vector  # noqa: E402
@@ -280,6 +298,27 @@ ROUTE_TURNS = ["kernel", "torch", "torch", "kernel", "kernel", "torch"]
 # seed, the planted non-positive pivot of cholesky_info, and the
 # distributed miniapp's run
 N_GRID, GRID_SEED, GRID_BAD = 8192, 6, 2500
+# the rest of the local API: trsm/trmm at A 32768 x 32768, B 32768 x 16384
+# (the miniapps' default of m/2 right-hand sides), hegst at n = 32768, herk
+# at n = k = 16384; every trsm/trmm case at (m, n) = BLAS_SWEEP. Their gates
+# (units in phase_blas_main's line): the miniapps' (500 for trsm/trmm, 1000
+# for hegst), which at these orders sit near max|B| itself (500 m eps32 =
+# 1.95 at m = 32768), and the smoke's own BLAS_BOUND. On an H100, sound runs
+# read trsm 9.7e-5 (left) and 8.4e-4 (right), trmm 5.7e-5, the n = 2048
+# sweep 0.012 at most; a skipped leaf solve reads 255, a skipped leaf
+# multiply 126. hegst is held in units of n eps32 max|R64| (R is O(1/n):
+# the miniapp's max(1, .) would hide a fault; a skipped leaf solve read 1.4
+# in those units).
+N_BLAS, NRHS_BLAS, N_HERK = 32768, 16384, 16384
+BLAS_SWEEP = (2048, 1024)
+BLAS_BOUND = 1.0
+MINIAPP_BLAS_BOUND, MINIAPP_HEGST_BOUND = 500.0, 1000.0
+HEGST_SLICE = 4096
+# eigh_gen at eigh_main's configuration: residual in units of n eps32
+# max(1, max|A|) and B-orthogonality in units of n eps32; the miniapp's
+# bound is 2000 in both. An H100 reads 5.8e-4 and 0.015 sound; one column
+# of B's factor scaled by 1.5 reads 12.8 and 1.65.
+GEN_BOUNDS = {"res": 0.1, "borth": 0.2}
 GRID_MINIAPP = ["-n", "4096", "-b", "512", "--grid-rows", "2", "--grid-cols", "2",
                 "--comm-backend", "gloo", "--check", "--nruns", "1", "--nwarmups", "0"]
 
@@ -1587,10 +1626,10 @@ def phase_main() -> None:
          allow_tf32=torch.backends.cuda.matmul.allow_tf32)
 
 
-def _miniapp(argv) -> str:
+def _miniapp(argv, mod=miniapp_cholesky) -> str:
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        miniapp_cholesky.main(argv)
+        mod.main(argv)
     return buf.getvalue()
 
 
@@ -1993,9 +2032,494 @@ def phase_dist_grid() -> None:
          miniapp=r0["miniapp"].strip().splitlines())
 
 
+# ---------------------------------------------------------------------------
+# The rest of the local API (trsm, trmm, hegst, herk) at full size, and the
+# generalized eigensolver at eigh_main's configuration
+
+
+def _sync_s(fn):
+    """(seconds, result) of fn() between two synchronizations."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def _timed(fn, runs: int):
+    """One warm-up, then ``runs`` timed calls: (seconds, the last result)."""
+    fn()
+    secs, out = [], None
+    for _ in range(runs):
+        out = None
+        t, out = _sync_s(fn)
+        secs.append(t)
+    return secs, out
+
+
+def _chunked_max(err_chunk, ncols: int) -> float:
+    """max over 4096-column chunks of err_chunk(c0, c1) (each a max of
+    |...|), so that no f64 temporary is larger than n x 4096."""
+    return max(err_chunk(c, min(c + 4096, ncols)) for c in range(0, ncols, 4096))
+
+
+@contextlib.contextmanager
+def _nth_call(mod, name, k: int, fault):
+    """Planted fault: call number ``k`` of ``mod.name`` returns ``fault`` of
+    its arguments in place of the real result."""
+    calls = [0]
+
+    def wrap(real):
+        def call(*args, **kw):
+            calls[0] += 1
+            return fault(*args, **kw) if calls[0] - 1 == k else real(*args, **kw)
+        return call
+
+    with _patched(mod, name, wrap):
+        yield
+
+
+def _skip_leaf_solve(a, b, **kw):
+    return b.clone()
+
+
+def _skip_leaf_multiply(a, lower, unit=False):
+    return torch.eye(a.shape[0], dtype=a.dtype, device=a.device)
+
+
+def _poisoned_triangular(g, n, lower, unit):
+    """random_triangular with 99 in the triangle no call may read (and 5 on
+    a unit diagonal, which is not read either); and the f64 triangle the
+    calls compute with."""
+    a = gen.random_triangular(g, n, torch.float32, lower=lower, unit=unit)
+    a64 = a.double()
+    junk = torch.full_like(a, 99.0)
+    a += torch.triu(junk, 1) if lower else torch.tril(junk, -1)
+    if unit:
+        a.diagonal().fill_(5.0)
+    return a, a64
+
+
+def _op64(a64, trans):
+    return {"N": a64, "T": a64.T, "C": a64.mH}[trans]
+
+
+def _blas_sweep() -> dict:
+    """Every side/uplo/trans/diag case of trsm and trmm at (m, n) =
+    BLAS_SWEEP against f64 on the card, in the units of the gates."""
+    m, n = BLAS_SWEEP
+    g = torch.Generator(device=DEV).manual_seed(21)
+    worst = {"trsm": 0.0, "trmm": 0.0}
+    cases = {}
+    for side in "LR":
+        for uplo in "LU":
+            for trans in "NTC":
+                for diag in "NU":
+                    na = m if side == "L" else n
+                    a, a64 = _poisoned_triangular(g, na, uplo == "L", diag == "U")
+                    b = gen.random_general(g, (m, n), torch.float32)
+                    b64 = b.double()
+                    kw = dict(side=side, uplo=uplo, trans=trans, diag=diag, nb=NB_MAIN)
+                    opa = _op64(a64, trans)
+                    x = dt.trsm(a, b, **kw).double()
+                    lhs = opa @ x if side == "L" else x @ opa
+                    r_s = float((lhs - b64).abs().max()) / (m * EPS32 * float(b64.abs().max()))
+                    y64 = opa @ b64 if side == "L" else b64 @ opa
+                    y = dt.trmm(a, b, **kw).double()
+                    r_m = float((y - y64).abs().max()) / (m * EPS32 * float(y64.abs().max()))
+                    cases[side + uplo + trans + diag] = [r_s, r_m]
+                    worst["trsm"] = max(worst["trsm"], r_s)
+                    worst["trmm"] = max(worst["trmm"], r_m)
+    for k, v in worst.items():
+        require(v <= BLAS_BOUND, f"{k} sweep at {BLAS_SWEEP}: {v} > {BLAS_BOUND} ({cases})")
+    return {"m": m, "n": n, "worst": worst, "cases": cases}
+
+
+def _trsm_trmm_main() -> dict:
+    """trsm and trmm side L, uplo L, trans N at A 32768 x 32768, B 32768 x
+    16384, and trsm side R once, each beside its library yardstick; the
+    gates beside a planted fault (one leaf solve or leaf multiply skipped)."""
+    m, n = N_BLAS, NRHS_BLAS
+    g = torch.Generator(device=DEV).manual_seed(22)
+    a = gen.random_triangular(g, m, torch.float32, lower=True)
+    b = gen.random_general(g, (m, n), torch.float32)
+    bmax = float(b.abs().max())
+    flops = m * m * n
+    out = {"m": m, "n": n, "flops": flops}
+    a64 = a.double()
+    kw = dict(side="L", uplo="L", trans="N", nb=NB_MAIN)
+
+    def trsm_reading(x):
+        return _chunked_max(lambda c0, c1: float(
+            (a64 @ x[:, c0:c1].double()).sub_(b[:, c0:c1].double()).abs_().max()), n) / (
+            m * EPS32 * bmax)
+
+    secs, x = _timed(lambda: dt.trsm(a, b, **kw), 2)
+    out["trsm"] = {"seconds": secs, "tflops": flops / min(secs) / 1e12,
+                   "reading": trsm_reading(x)}
+    del x
+    with _nth_call(blocked, "trsm_leaf", m // NB_MAIN // 2, _skip_leaf_solve):
+        out["trsm"]["planted_reading"] = trsm_reading(dt.trsm(a, b, **kw))
+    lib, x = _timed(lambda: torch.linalg.solve_triangular(a, b, upper=False), 1)
+    out["trsm"].update(library_seconds=lib, library_tflops=flops / lib[0] / 1e12,
+                       library="torch.linalg.solve_triangular", library_reading=trsm_reading(x))
+    del x
+
+    def trmm_reading(y):
+        ymax = [0.0]      # max|Y64|, gathered chunk by chunk
+
+        def chunk(c0, c1):
+            ref = a64 @ b[:, c0:c1].double()
+            ymax[0] = max(ymax[0], float(ref.abs().max()))
+            return float(ref.sub_(y[:, c0:c1].double()).abs_().max())
+
+        err = _chunked_max(chunk, n)
+        return err / (m * EPS32 * ymax[0])
+
+    secs, y = _timed(lambda: dt.trmm(a, b, **kw), 2)
+    out["trmm"] = {"seconds": secs, "tflops": flops / min(secs) / 1e12,
+                   "reading": trmm_reading(y)}
+    del y
+    with _nth_call(blocked, "take_tri", m // NB_MAIN // 2, _skip_leaf_multiply):
+        out["trmm"]["planted_reading"] = trmm_reading(dt.trmm(a, b, **kw))
+    lib, y = _timed(lambda: torch.tril(a) @ b, 1)
+    out["trmm"].update(library_seconds=lib, library_tflops=flops / lib[0] / 1e12,
+                       library="torch.tril(A) @ B", library_reading=trmm_reading(y))
+    del y
+    # the right side once: X A = B with B 16384 x 32768 (column views)
+    bt = b.T.contiguous()
+    del b
+    t_r, x = _timed(lambda: dt.trsm(a, bt, side="R", uplo="L", trans="N", nb=NB_MAIN), 1)
+    reading_r = _chunked_max(lambda r0, r1: float(
+        (x[r0:r1].double() @ a64).sub_(bt[r0:r1].double()).abs_().max()), n) / (
+        m * EPS32 * bmax)
+    del x
+    lib_r, _ = _timed(lambda: torch.linalg.solve_triangular(a, bt, upper=False, left=False), 1)
+    out["trsm_right"] = {"seconds": t_r, "tflops": flops / t_r[0] / 1e12, "reading": reading_r,
+                         "library_seconds": lib_r, "library_tflops": flops / lib_r[0] / 1e12}
+    del a, a64, bt
+    torch.cuda.empty_cache()
+    for k in ("trsm", "trmm"):
+        r = out[k]
+        require(r["reading"] <= BLAS_BOUND < r["planted_reading"],
+                f"{k} n={m}: reading {r['reading']}, planted {r['planted_reading']}, "
+                f"bound {BLAS_BOUND}")
+        require(r["reading"] <= MINIAPP_BLAS_BOUND, f"{k} n={m}: the miniapp's gate")
+    require(out["trsm_right"]["reading"] <= BLAS_BOUND, f"trsm R n={m}: {out['trsm_right']}")
+    return out
+
+
+def _hegst_reading(r, a, l) -> dict:
+    """hegst's R = L^-1 A L^-H on rows [0, s) and columns [0, s), s =
+    HEGST_SLICE, against the same slices formed in f64 (together they
+    meet every leaf of both solves): in units of n eps32 max|R64|, and in
+    the miniapp's units n eps32 max(1, max|R64|) (R is O(max|A| / n) here,
+    so the miniapp's clamp to 1 takes its scale)."""
+    n, s = a.shape[0], HEGST_SLICE
+    l64 = l.double()
+    rows = torch.linalg.solve_triangular(l64[:s, :s], torch.linalg.solve_triangular(
+        l64, a[:, :s].double(), upper=False).mH, upper=False)
+    cols = torch.linalg.solve_triangular(l64, torch.linalg.solve_triangular(
+        l64[:s, :s], a[:s].double(), upper=False).mH, upper=False)
+    del l64
+    scale = max(float(rows.abs().max()), float(cols.abs().max()))
+    err = max(float((r[:s].double() - rows).abs().max()),
+              float((r[:, :s].double() - cols).abs().max()))
+    return {"reading": err / (n * EPS32 * scale),
+            "miniapp_reading": err / (n * EPS32 * max(1.0, scale))}
+
+
+def _hegst_main() -> dict:
+    """hegst (uplo L) of a 32768 hermitian A against the K1 factor of a
+    32768 SPD B; two library solves beside it; the gate beside a planted
+    fault (one leaf solve of the first solve skipped)."""
+    n = N_BLAS
+    g = torch.Generator(device=DEV).manual_seed(23)
+    a = gen.random_hermitian(g, n, torch.float32)
+    b = gen.random_hermitian_positive_definite(g, n, torch.float32)
+    potrf_tile.launches = 0
+    t_l, l = _sync_s(lambda: dt.potrf(b, uplo="L", nb=NB_MAIN))
+    k1 = potrf_tile.launches
+    del b
+    flops = 2 * n**3            # two full triangular solves with n right-hand sides
+    secs, r = _timed(lambda: dt.hegst(a, l, nb=NB_MAIN), 2)
+    out = {"n": n, "potrf_seconds": t_l, "potrf_k1_launches": k1, "seconds": secs,
+           "flops": flops, "tflops": flops / min(secs) / 1e12, **_hegst_reading(r, a, l)}
+    del r
+    torch.cuda.empty_cache()
+    with _nth_call(blocked, "trsm_leaf", n // NB_MAIN // 2, _skip_leaf_solve):
+        planted = _hegst_reading(dt.hegst(a, l, nb=NB_MAIN), a, l)
+    out["planted_reading"] = planted["reading"]
+    torch.cuda.empty_cache()
+
+    def library():
+        y = torch.linalg.solve_triangular(l, a, upper=False)
+        return torch.linalg.solve_triangular(l, y.mH, upper=False)
+
+    lib, r = _timed(library, 1)
+    out.update(library_seconds=lib, library_tflops=flops / lib[0] / 1e12,
+               library="two torch.linalg.solve_triangular",
+               library_reading=_hegst_reading(r, a, l)["reading"])
+    del a, l, r
+    torch.cuda.empty_cache()
+    require(k1 > 0, "hegst's potrf launched K1")
+    require(out["reading"] <= BLAS_BOUND < out["planted_reading"],
+            f"hegst n={n}: reading {out['reading']}, planted {out['planted_reading']}")
+    require(out["miniapp_reading"] <= MINIAPP_HEGST_BOUND, f"hegst n={n}: the miniapp's gate")
+    return out
+
+
+def _herk_main() -> dict:
+    """herk U/C with alpha -1, beta 1 at n = k = 16384 (nb = 512) through K2,
+    beside the same call on the plain route (potrf_trailing_kernel="torch").
+    K2 writes the upper triangle's off-diagonal blocks: those are held to
+    f64 with phase_k2's bound (the operands are K2's random inputs), beside
+    a planted fault (K2 cut to one TF32 term). The diagonal 512-blocks are
+    the leaves' products, the same on both routes: bit-equal between them
+    and held per entry to f64 within k eps32 (|A|^T |A| + |C|), the
+    forward-error bound of a length-k dot product (their Gram sums are all
+    positive, so K2's bound does not apply there). The lower triangle stays
+    C's, bit for bit."""
+    n = k = N_HERK
+    nb = NB_MAIN
+    g = torch.Generator(device=DEV).manual_seed(24)
+    a = gen.random_general(g, (k, n), torch.float32)
+    c = gen.random_hermitian(g, n, torch.float32)
+    want = c.double().addmm_(a.double().T, a.double(), alpha=-1)
+    bound = EPS32 * (2 * k * float(a.abs().max()) ** 2 + float(c.abs().max()))
+    blk = torch.arange(n, device=DEV) // nb
+    off = (blk[:, None] < blk[None, :])          # the off-diagonal blocks K2 writes
+    kw = dict(uplo="U", trans="C", alpha=-1.0, beta=1.0)
+    out = {"n": n, "k": k, "nb": nb, "flops": n * n * k, "k2_bound": bound}
+
+    def off_reading(f):
+        require(torch.equal(torch.tril(f, -1), torch.tril(c, -1)),
+                "herk wrote the lower triangle")
+        return float(torch.where(off, (f.double() - want).abs(), 0).max()) / bound
+
+    def diag_reading(f):
+        worst = 0.0
+        for i in range(0, n, nb):
+            s = slice(i, i + nb)
+            scale = a[:, s].double().abs()
+            scale = scale.T @ scale + c[s, s].double().abs()
+            err = (f[s, s].double() - want[s, s]).abs() / (k * EPS32 * scale)
+            worst = max(worst, float(torch.triu(err).max()))
+        return worst
+
+    diag = {}
+    dt.set_tune_parameters(leaf_block_size=nb)
+    try:
+        for route in ("kernel", "torch"):
+            dt.set_tune_parameters(potrf_trailing_kernel=route)
+            ksub_matmul.launches = 0
+            secs, f = _timed(lambda: dt.herk(a, c, **kw), 2)
+            diag[route] = torch.cat([torch.triu(f[i:i + nb, i:i + nb]) for i in range(0, n, nb)])
+            out[route] = {"seconds": secs, "tflops": n * n * k / min(secs) / 1e12,
+                          "ksub_matmul_launches_per_call": ksub_matmul.launches // 3,
+                          "reading": off_reading(f), "diagonal_block_reading": diag_reading(f)}
+            del f
+        dt.set_tune_parameters(potrf_trailing_kernel="kernel")
+
+        def one_term(real):
+            return lambda c_, x, y, x_k_major=True: c_.copy_(
+                ksub_matmul_split_ref(c_, x, y, x_k_major, terms=1))
+
+        with _patched(blocked, "ksub_matmul", one_term):
+            out["planted_one_tf32_term_reading"] = off_reading(dt.herk(a, c, **kw))
+    finally:
+        dt.reset_tune_parameters()
+    out["diagonal_blocks_bit_equal"] = torch.equal(diag["kernel"], diag["torch"])
+    require(out["kernel"]["ksub_matmul_launches_per_call"] > 0, "herk U/C launched K2")
+    require(out["torch"]["ksub_matmul_launches_per_call"] == 0, "the plain herk launched K2")
+    require(out["diagonal_blocks_bit_equal"], "herk's diagonal blocks differ between routes")
+    for route in ("kernel", "torch"):
+        r = out[route]
+        require(r["reading"] <= 1.0 and r["diagonal_block_reading"] <= 1.0, f"herk {route}: {r}")
+    require(out["planted_one_tf32_term_reading"] > 1.0, "herk's bound passes one TF32 term")
+    del a, c, want, off, diag
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_blas_main() -> None:
+    """trsm, trmm, hegst and herk in f32 at the repo's headline size
+    (nb = 512), each beside a library yardstick and its gate beside a
+    planted fault; every trsm/trmm case at n = 2048 against f64."""
+    torch.cuda.empty_cache()
+    parts, seconds = {}, {}
+    for name, fn in (("sweep", _blas_sweep), ("trsm_trmm", _trsm_trmm_main),
+                     ("hegst", _hegst_main), ("herk", _herk_main)):
+        t0 = time.perf_counter()
+        parts[name] = fn()
+        seconds[name] = time.perf_counter() - t0
+    KERNELS["potrf_tile"].setdefault("launches_on_paths", {})["hegst's potrf n=32768"] = \
+        parts["hegst"]["potrf_k1_launches"]
+    KERNELS["ksub_matmul"].setdefault("launches_on_paths", {})["herk U/C n=k=16384"] = \
+        parts["herk"]["kernel"]["ksub_matmul_launches_per_call"]
+    emit("blas_main", dtype="float32", nb=NB_MAIN, bound=BLAS_BOUND,
+         units={"trsm": "max|op(A)X - B| / (m eps32 max|B|)",
+                "trmm": "max|Y - Y64| / (m eps32 max|Y64|)",
+                "hegst": "max|R - R64| / (n eps32 max|R64|) on R[:4096, :], R[:, :4096] "
+                          "(miniapp_reading: max(1, max|R64|))",
+                "herk": "max|C - C64| on the off-diagonal blocks / (eps32 (2k max|A|^2 + "
+                         "max|C|)); diagonal blocks: max |C - C64| / (k eps32 (|A|^T|A| "
+                         "+ |C|)) per entry"},
+         miniapp_bounds={"trsm": MINIAPP_BLAS_BOUND, "trmm": MINIAPP_BLAS_BOUND,
+                         "hegst": MINIAPP_HEGST_BOUND},
+         part_seconds=seconds, **parts)
+
+
+def _gen_readings(a64, b64, w, x) -> dict:
+    """eigh_gen's gates in f64 on the card: residual max|A X - B X diag(w)|
+    in units of n eps32 max(1, max|A|), max|X^H B X - I| in units of
+    n eps32; and the miniapp's gate (2000 in these units) on them."""
+    n = a64.shape[0]
+    x64 = x.double()
+    unit = n * EPS32
+    res = float((a64 @ x64 - (b64 @ x64) * w.double()[None, :]).abs().max()) / (
+        unit * max(1.0, float(a64.abs().max())))
+    borth = float((x64.mT @ b64 @ x64 - torch.eye(n, dtype=torch.float64, device=DEV))
+                  .abs().max()) / unit
+    return {"res": res, "borth": borth, "miniapp_gate": res <= 2000 and borth <= 2000}
+
+
+def _eigh_gen_stages(a, b, band: int):
+    """dt.eigh_gen's stages (uplo L, not factorized), as driver.eigh_gen and
+    gen_to_std run them, with a synchronization after each: (w, x, seconds
+    per stage, the factor)."""
+    nb = dt.get_tune_parameters().leaf_block_size
+    n = a.shape[0]
+    secs = {}
+
+    def lap(name, fn):
+        t, out = _sync_s(fn)
+        secs[name] = t
+        return out
+
+    l = lap("potrf_k1", lambda: dt.potrf(b, uplo="L", nb=nb))
+    lp = _tri_operand(l, nb, identity=True)
+
+    def first():
+        y = hermitian_from_tri_(_pad_zero(a, nb), True)
+        return blocked.trsm(y, lp, side="L", lower=True, trans="N", unit=False, nb=nb)
+
+    y = lap("hegst_solve1", first)
+    y = lap("hegst_solve2", lambda: blocked.trsm(
+        ct(y).clone(memory_format=torch.contiguous_format), lp, side="L", lower=True,
+        trans="N", unit=False, nb=nb))
+    w, z = lap("eigh_k3", lambda: dt.eigh(y[:n, :n], uplo="L", band=band))
+    x = lap("back_solve", lambda: dt.trsm(l, z, side="L", uplo="L", trans="C", nb=nb))
+    return w, x, secs, l
+
+
+def _library_gen(a, b):
+    """The library route: cholesky, two solve_triangular, eigh, one
+    solve_triangular; seconds per stage."""
+    secs = {}
+
+    def lap(name, fn):
+        t, out = _sync_s(fn)
+        secs[name] = t
+        return out
+
+    l = lap("cholesky", lambda: torch.linalg.cholesky(b))
+    y = lap("solve1", lambda: torch.linalg.solve_triangular(l, a, upper=False))
+    y = lap("solve2", lambda: torch.linalg.solve_triangular(l, y.mH, upper=False))
+    w, z = lap("eigh", lambda: torch.linalg.eigh(y))
+    x = lap("back_solve", lambda: torch.linalg.solve_triangular(l.mH, z, upper=True))
+    return w, x, secs
+
+
+def _local_miniapps() -> dict:
+    """The four new miniapps on the card with --check, and the K1 and K3
+    launches each made."""
+    runs = {}
+    for mod, argv, k1, k3 in (
+            (miniapp_triangular_solver, ["-n", "1024", "-b", "512"], False, False),
+            (miniapp_triangular_multiplication, ["-n", "1024", "-b", "512"], False, False),
+            (miniapp_gen_to_std, ["-n", "1024", "-b", "512"], True, False),
+            (miniapp_gen_eigensolver, ["-n", "512"], True, True)):
+        name = mod.__name__.rsplit(".", 1)[1]
+        _counters_reset()
+        out = _miniapp(argv + ["--check", "--nruns", "1"], mod)
+        counts = _counters()
+        require("check: PASSED" in out, f"{name}: {out}")
+        require((counts["potrf_tile"] > 0) == k1 and
+                (counts["band_to_tridiag_strips"] > 0) == k3, f"{name}: launches {counts}")
+        runs[name] = {"lines": out.strip().splitlines(),
+                      "k1_launches": counts["potrf_tile"],
+                      "k3_launches": counts["band_to_tridiag_strips"]}
+    return runs
+
+
+def phase_eigh_gen_main() -> None:
+    """eigh_gen at n = 8192 f32, band 128 (eigh_main's configuration), nb =
+    512: a warm-up, two timed runs through the entry point (K1 and K3
+    launches counted), a staged run timed by stage and held bit-equal to
+    the entry point's, the library route beside it, the gates beside a
+    planted fault (one column of B's factor scaled by 1.5), then the four
+    new miniapps."""
+    n, band = N_EIGH, B_EIGH
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=DEV).manual_seed(25)
+    a = gen.random_hermitian(g, n, torch.float32)
+    b = gen.random_hermitian_positive_definite(g, n, torch.float32)
+    a64, b64 = a.double(), b.double()
+    dt.set_tune_parameters(leaf_block_size=NB_MAIN)
+    try:
+        dt.eigh_gen(a, b, band=band)
+        secs, ws = [], []
+        for _ in range(2):
+            _counters_reset()
+            t, (w, x) = _sync_s(lambda: dt.eigh_gen(a, b, band=band))
+            counts = _counters()
+            secs.append(t)
+            ws.append(w)
+        require(counts["potrf_tile"] > 0 and counts["band_to_tridiag_strips"] > 0,
+                f"eigh_gen launched K1 and K3: {counts}")
+        readings = _gen_readings(a64, b64, w, x)
+        w_s, x_s, stages, l = _eigh_gen_stages(a, b, band)
+        same = {"w_timed_runs": torch.equal(*ws), "w_staged": torch.equal(w_s, w),
+                "x_staged": torch.equal(x_s, x)}
+        require(same["w_staged"], f"the staged eigh_gen computes what dt.eigh_gen does ({same})")
+        del x, x_s, ws
+        # planted fault: column n/2 of B's factor scaled by 1.5
+        l_bad = l.clone()
+        l_bad[:, n // 2] *= 1.5
+        w_bad, x_bad = dt.eigh_gen(a, l_bad, factorized=True, band=band)
+        planted = _gen_readings(a64, b64, w_bad, x_bad)
+        del l, l_bad, w_bad, x_bad
+    finally:
+        dt.reset_tune_parameters()
+    require(readings["miniapp_gate"], f"eigh_gen n={n}: the miniapp's gates ({readings})")
+    for k, bound in GEN_BOUNDS.items():
+        require(readings[k] <= bound < planted[k],
+                f"eigh_gen {k}: reading {readings[k]}, planted {planted[k]}, bound {bound}")
+    _library_gen(a, b)
+    w_l, x_l, lib_stages = _library_gen(a, b)
+    lib_readings = _gen_readings(a64, b64, w_l, x_l)
+    del a, b, a64, b64, w_l, x_l
+    torch.cuda.empty_cache()
+    KERNELS["potrf_tile"].setdefault("launches_on_paths", {})["eigh_gen n=8192"] = \
+        counts["potrf_tile"]
+    KERNELS["band_to_tridiag_strips"].setdefault("launches_on_paths", {})["eigh_gen n=8192"] = \
+        counts["band_to_tridiag_strips"]
+    miniapps = _local_miniapps()
+    emit("eigh_gen_main", n=n, band=band, nb=NB_MAIN, dtype="float32", seconds=secs,
+         stage_seconds=stages, launches=counts, readings=readings, bounds=GEN_BOUNDS,
+         units={"res": "max|A X - B X diag(w)| / (n eps32 max(1, max|A|))",
+                "borth": "max|X^T B X - I| / (n eps32)"},
+         planted_fault_readings=planted, bit_equal=same, library_stage_seconds=lib_stages,
+         library_seconds=sum(lib_stages.values()), library_readings=lib_readings,
+         library="torch.linalg.cholesky + 2 solve_triangular + torch.linalg.eigh + "
+                 "solve_triangular, f32",
+         miniapps=miniapps)
+
+
 PHASES = (phase_device, phase_k1, phase_k2, phase_main, phase_miniapp, phase_info,
           phase_k6, phase_dist_main, phase_dist_grid, phase_k3, phase_eigh_main, phase_eigh_c64, phase_miniapp_eigensolver, phase_k45,
-          phase_eigh_large_main, phase_eigh_large_cases)
+          phase_eigh_large_main, phase_eigh_large_cases, phase_blas_main, phase_eigh_gen_main)
 
 
 def main() -> None:

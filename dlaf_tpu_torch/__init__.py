@@ -1,34 +1,39 @@
 """dlaf_tpu_torch — the PyTorch/CUDA port of dlaf_tpu for one NVIDIA H100.
 
 The JAX package :mod:`dlaf_tpu` is the reference; this package mirrors its
-module paths. Ported so far: the local Cholesky factorization (``potrf``,
-``potrf_info``), the local two-stage Hermitian eigensolver (``eigh``,
-``eigvalsh``) and its memory-planned form for contract-scale problems
-(``eigh_large``, ``eigvalsh_large``) end to end, with hand-written Hopper
-kernels for their five TPU kernels (``ops/kernels``, sources in
-``csrc/``), the tuning parameters, the matrix generators and the Cholesky
-and eigensolver miniapps. The distributed data model (``dist``,
-``comm`` on ``torch.distributed``, ``DistMatrix``) and the distributed
-Cholesky (``cholesky``, ``cholesky_info``, with kernel K6) run one process
-per rank of a process ``Grid``. The package never imports JAX.
+module paths. Ported so far: the whole local API end to end: the Cholesky
+factorization (``potrf``, ``potrf_info``), the BLAS-3 (``trsm``, ``trmm``,
+``hemm``, ``herk``, ``gemm``), the two-stage Hermitian eigensolver
+(``eigh``, ``eigvalsh``) and its memory-planned form for contract-scale
+problems (``eigh_large``, ``eigvalsh_large``), and the generalized
+eigensolver (``hegst``, ``eigh_gen``), with hand-written Hopper kernels
+for the TPU kernels on their paths (``ops/kernels``, sources in
+``csrc/``); the local auxiliaries (``algos/norm.py``,
+``algos/permutations.py``), the tuning parameters, the matrix generators
+and six miniapps (Cholesky, eigensolver, triangular solver and
+multiplication, gen_to_std, generalized eigensolver). The distributed data
+model (``dist``, ``comm`` on ``torch.distributed``, ``DistMatrix``) and the
+distributed Cholesky (``cholesky``, ``cholesky_info``, with kernel K6) run
+one process per rank of a process ``Grid``. The package never imports JAX.
 """
 from . import types
 from .algos.cholesky import cholesky, cholesky_info
 from .algos.eigensolver.band2tridiag import band_to_tridiag_auto
-from .algos.eigensolver.driver import _phase_normalize, eigh, get_band_size
+from .algos.eigensolver.driver import _phase_normalize, eigh, eigh_gen, get_band_size
 from .algos.eigensolver.large import eigh_large, eigvalsh_large
 from .algos.eigensolver.red2band import extract_band, reduction_to_band
 from .algos.eigensolver.tridiag_dc import tridiag_eigh
-from .api.local import potrf, potrf_info
+from .algos.gen_to_std import generalized_to_standard as hegst
+from .api.local import gemm, hemm, herk, potrf, potrf_info, trmm, trsm
 from .comm.mesh import Grid
 from .matrix.dist_matrix import DistMatrix
 from .ops.core import ct
 from .tune import (TuneParameters, from_dict, get_tune_parameters,
                    reset_tune_parameters, set_tune_parameters)
 
-__all__ = ["types", "potrf", "potrf_info", "eigh", "eigvalsh", "eigh_large",
-           "eigvalsh_large", "cholesky", "cholesky_info", "DistMatrix", "Grid",
-           "TuneParameters",
+__all__ = ["types", "potrf", "potrf_info", "trsm", "trmm", "hemm", "herk", "gemm",
+           "eigh", "eigvalsh", "eigh_gen", "hegst", "eigh_large", "eigvalsh_large",
+           "cholesky", "cholesky_info", "DistMatrix", "Grid", "TuneParameters",
            "from_dict", "get_tune_parameters", "reset_tune_parameters",
            "set_tune_parameters"]
 

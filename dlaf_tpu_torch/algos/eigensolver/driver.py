@@ -6,15 +6,19 @@ PyTorch counterpart of :mod:`dlaf_tpu.algos.eigensolver.driver` (reference
     reduction_to_band -> band_to_tridiag -> tridiagonal D&C
         -> bt_band_to_tridiag -> bt_reduction_to_band
 
-The generalized driver ``eigh_gen`` needs the local TRSM, which is not
-ported yet.
+plus the generalized driver ``eigh_gen`` (``GenEigensolver::call``,
+``eigensolver/gen_eigensolver/impl.h:30-93``):
+
+    potrf(B) -> generalized_to_standard -> eigh -> TRSM back-substitution.
 """
 from __future__ import annotations
 
 import torch
 
+from ...api import local as lapi
 from ...ops.core import ct
 from ...tune import get_tune_parameters
+from ..gen_to_std import generalized_to_standard
 from .band2tridiag import band_to_tridiag_auto as band_to_tridiag
 from .bt import bt_band_to_tridiag, bt_reduction_to_band
 from .red2band import extract_band, reduction_to_band
@@ -101,3 +105,32 @@ def _phase_normalize(e: torch.Tensor, dtype):
     sign = torch.where(mag > 0, e / torch.where(mag > 0, mag, 1.0), 1.0)
     phases = torch.cat([torch.ones((1,), dtype=dtype, device=e.device), torch.cumprod(sign, 0)])
     return mag, phases
+
+
+def eigh_gen(a: torch.Tensor, b: torch.Tensor, uplo: str = "L", factorized: bool = False,
+             **kw):
+    """Generalized eigenproblem A x = lambda B x (B hermitian positive
+    definite): (w, x) with w ascending and X^H B X = I.
+
+    Reference: ``dlaf::hermitian_generalized_eigensolver[_factorized]``
+    (``eigensolver/gen_eigensolver.h:182-476``). Only the ``uplo``
+    triangles of ``a`` and ``b`` are read. B is factored lower whatever
+    ``uplo`` is (K1 on the card's f32 leaves); with ``factorized``, ``b``
+    is already the Cholesky factor on the ``uplo`` triangle (an upper
+    factor U is used as L = U^H). ``kw`` goes to :func:`eigh` (K3 in its
+    stage 2).
+    """
+    nb = get_tune_parameters().leaf_block_size
+    if uplo not in ("L", "U"):
+        raise ValueError(f"uplo must be 'L' or 'U', got {uplo!r}")
+    if uplo == "U":
+        # the lower triangle of A^H (B^H) is the hermitian matrix's lower
+        # triangle, built from the stored upper one
+        a = ct(a)
+        b = ct(b)
+    l = b if factorized else lapi.potrf(b, uplo="L", nb=nb)
+    astd = generalized_to_standard(a, l, uplo="L", nb=nb)
+    w, z = eigh(astd, uplo="L", **kw)
+    del astd
+    # back-substitution x = L^-H z (reference gen_eigensolver/impl.h:85-91)
+    return w, lapi.trsm(l, z, side="L", uplo="L", trans="C", nb=nb)

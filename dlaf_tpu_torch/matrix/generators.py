@@ -57,3 +57,21 @@ def random_hermitian_positive_definite(generator: torch.Generator, n: int,
     h = random_hermitian(generator, n, dtype)
     h.diagonal().add_(n)
     return h
+
+
+def random_triangular(generator: torch.Generator, n: int, dtype: DTypeLike, lower: bool = True,
+                      unit: bool = False) -> torch.Tensor:
+    """Well-conditioned random triangular matrix: the strict triangle
+    uniform in [-1, 1] over n (off-diagonal mass small, condition number
+    O(1)), the diagonal uniform in [1, 2] (real), or ones with ``unit``.
+    Built in place: the result is the only full-size tensor."""
+    dtype = as_dtype(dtype)
+    t = random_general(generator, (n, n), dtype)
+    (t.tril_(-1) if lower else t.triu_(1)).div_(n)
+    if unit:
+        t.diagonal().fill_(1)
+    else:
+        d = torch.rand((n,), generator=generator, dtype=real_dtype(dtype),
+                       device=generator.device)
+        t.diagonal().copy_(d.add_(1))
+    return t

@@ -1,0 +1,59 @@
+"""Triangular solver miniapp (reference ``miniapp/miniapp_triangular_solver.cpp``).
+
+PyTorch counterpart of :mod:`dlaf_tpu.miniapps.miniapp_triangular_solver`,
+local branch: ``trsm`` side L of a well-conditioned random triangular A of
+order m against m/2 (``--m``) right-hand sides; GFlop/s with add = mul =
+m^2 n / 2, and with ``--check`` max|A X - B| <= 500 m eps.
+
+Run: ``python -m dlaf_tpu_torch.miniapps.miniapp_triangular_solver -n 8192 -b 512 --check``
+(``--device cpu`` runs on the CPU).
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+
+import dlaf_tpu_torch as dt
+from dlaf_tpu_torch.matrix import generators as gen
+from dlaf_tpu_torch.types import eps, total_ops
+
+from . import options
+
+
+def operands(args, dtype, device):
+    """The miniapps' A (random triangular, order m, seed 0) and B (m x n,
+    seed 1), n = ``--m`` or m/2."""
+    m = args.matrix_size
+    n = args.m or m // 2 or 1
+    a = gen.random_triangular(torch.Generator(device=device).manual_seed(0), m, dtype,
+                              lower=(args.uplo == "L"))
+    b = gen.random_general(torch.Generator(device=device).manual_seed(1), (m, n), dtype)
+    return a, b
+
+
+def refuse_grid(args, what: str) -> None:
+    if args.grid_rows * args.grid_cols > 1:
+        raise NotImplementedError(
+            f"the distributed {what} is not ported yet (ROADMAP Queue 1 items 4-5: "
+            "DistMatrix.transpose, then the distributed BLAS-3 and auxiliaries)")
+
+
+def main(argv=None):
+    args = options.parser("miniapp_triangular_solver").parse_args(argv)
+    refuse_grid(args, "triangular solver")
+    dtype = options.dtype_of(args)
+    a, b = operands(args, dtype, options.device_of(args))
+    m, n = b.shape
+    fn = functools.partial(dt.trsm, a, b, uplo=args.uplo, nb=min(args.block_size, 512))
+    flops = total_ops(dtype, m * m * n / 2, m * m * n / 2)
+
+    def check(x):
+        res = float((a @ x - b).abs().max())
+        return res <= 500 * m * eps(dtype), f"residual {res:.2e}"
+
+    options.run_timed(args, fn, flops, check_fn=check)
+
+
+if __name__ == "__main__":
+    main()

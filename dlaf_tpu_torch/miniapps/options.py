@@ -6,9 +6,9 @@ runs after the warm-ups between full device synchronisations, and the
 parseable ``CSVData-2`` row, field for field as the JAX miniapps print it.
 
 The device is explicit (``--device``, default ``cuda``): a run asked for
-the card fails where there is none, it never moves to the CPU. Options that
-only other miniapps read (``--m``) and ``--input-file`` /
-``--output-file`` (which need ``matrix/io.py``) come with later slices.
+the card fails where there is none, it never moves to the CPU.
+``--input-file`` / ``--output-file`` (which need ``matrix/io.py``) come
+with a later slice.
 
 A grid larger than 1x1 (``--grid-rows``/``--grid-cols``) is a distributed
 run: one process per rank, started by ``torchrun --nproc-per-node P*Q``
@@ -35,6 +35,8 @@ def parser(name: str) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog=name)
     p.add_argument("--matrix-size", "-n", type=int, default=2048)
     p.add_argument("--block-size", "-b", type=int, default=256)
+    p.add_argument("--m", type=int, default=None,
+                   help="columns of B (triangular solver/multiplication; default n/2)")
     p.add_argument("--band-size", type=int, default=None,
                    help="eigensolver band (default: get_band_size of the tune "
                         "parameters' default_block_size)")

@@ -1,19 +1,19 @@
-"""Blocked recursive POTRF building blocks (single device).
+"""Blocked recursive BLAS-3/LAPACK building blocks (single device).
 
-PyTorch counterpart of the POTRF part of :mod:`dlaf_tpu.ops.blocked`
-(``_split``, ``potrf_lower``, ``potrf_upper``, the two pre-inverted panel
-solves and ``_herk_inplace``). The recursion is the same static
-tile-aligned halving; what JAX writes as functional ``.at[].set`` updates
-are in-place writes into the one working buffer here: every function below
-modifies the tensor it is given (a view into that buffer) and returns it.
-Block updates of the form C <- beta C + alpha op(A) op(B) are one
-``addmm_`` into the view, so the plain route allocates no product.
+PyTorch counterpart of :mod:`dlaf_tpu.ops.blocked`: POTRF (with its two
+pre-inverted panel solves), TRSM, TRMM, HERK, HER2K, HEMM and GEMM. The
+recursion is the same static tile-aligned halving; what JAX writes as
+functional ``.at[].set`` updates are in-place writes into the one working
+buffer here: every function below modifies the tensor it is given (a view
+into that buffer) and returns it. Block updates of the form
+C <- beta C + alpha op(A) op(B) are one ``addmm_`` into the view, so the
+plain route allocates no product.
 
-All functions require dimensions to be multiples of the leaf size ``nb``
-(the public API pads, see :mod:`dlaf_tpu_torch.api.local`), are dtype
-generic, and follow BLAS semantics for which triangle is read and written.
-The rest of the JAX module (TRSM, TRMM, HERK, HER2K, HEMM, GEMM) is not
-ported yet.
+The triangular recursions (POTRF, TRSM, TRMM) require dimensions to be
+multiples of the leaf size ``nb`` (the public API pads, see
+:mod:`dlaf_tpu_torch.api.local`); HERK and HER2K take any n. All are
+dtype generic and follow BLAS semantics for which triangle is read and
+written.
 """
 from __future__ import annotations
 
@@ -21,10 +21,10 @@ import torch
 
 from ..tune import get_tune_parameters
 from ..types import Trans
-from .core import ct, mm, op_mat, set_tri
+from .core import ct, mm, op_mat, set_tri, symmetrize_tri, take_tri
 from .householder import tri_inv
 from .kernels.trailing import ksub_available, ksub_matmul
-from .leaf import potrf_leaf
+from .leaf import potrf_leaf, trsm_leaf
 
 
 def _split(n: int, nb: int) -> int:
@@ -136,6 +136,140 @@ def _trsm_left_uc_preinv(b, a, invd, o, s, nb):
     return b
 
 
+# ---------------------------------------------------------------------------
+# TRSM — triangular solve with multiple right-hand sides
+
+
+def trsm(b, a, *, side: str, lower: bool, trans: str, unit: bool, nb: int, alpha=1.0):
+    """Solve op(A) X = alpha B (side='L') or X op(A) = alpha B (side='R') in
+    place: X overwrites ``b``. All 8 side/uplo/trans cases of the
+    reference's triangular solver (``solver/triangular/impl.h:236-473``),
+    the right-side ones by the native column-block recursion, as in JAX."""
+    if alpha != 1:
+        b.mul_(alpha)
+    if side == "R":
+        return _trsm_right(b, a, lower, trans, unit, nb)
+    return _trsm_left(b, a, lower, trans, unit, nb)
+
+
+def _trsm_left(b, a, lower, trans, unit, nb):
+    n = _check_tiled(a, nb)
+    if b.shape[0] != n:
+        raise ValueError(f"trsm: b has {b.shape[0]} rows, A is {n} x {n}")
+    forward = (lower and trans == "N") or (not lower and trans != "N")
+
+    def rec(o, s):
+        if s <= nb:
+            b[o:o + s] = trsm_leaf(a[o:o + s, o:o + s], b[o:o + s], left=True,
+                                   lower=lower, trans=trans, unit=unit)
+            return
+        s1 = _split(s, nb)
+        # op(A)'s off-diagonal block: A21 or op(A12) below-left (forward),
+        # A12 or op(A21) above-right (backward)
+        m = op_mat(a[o + s1:o + s, o:o + s1] if lower else a[o:o + s1, o + s1:o + s], trans)
+        if forward:
+            rec(o, s1)
+            b[o + s1:o + s].addmm_(m, b[o:o + s1], alpha=-1)
+            rec(o + s1, s - s1)
+            return
+        rec(o + s1, s - s1)
+        b[o:o + s1].addmm_(m, b[o + s1:o + s], alpha=-1)
+        rec(o, s1)
+
+    rec(0, n)
+    return b
+
+
+def _trsm_right(b, a, lower, trans, unit, nb):
+    """X op(A) = B by column-block recursion (all four lower/trans cases);
+    the updates are ``addmm_`` into column views of ``b``."""
+    n = _check_tiled(a, nb)
+    if b.shape[1] != n:
+        raise ValueError(f"trsm: b has {b.shape[1]} columns, A is {n} x {n}")
+    forward = (lower and trans != "N") or (not lower and trans == "N")
+
+    def rec(o, s):
+        if s <= nb:
+            b[:, o:o + s] = trsm_leaf(a[o:o + s, o:o + s], b[:, o:o + s], left=False,
+                                      lower=lower, trans=trans, unit=unit)
+            return
+        s1 = _split(s, nb)
+        # op(A)'s off-diagonal block: A12 or op(A21) above-right (forward),
+        # A21 or op(A12) below-left (backward)
+        m = op_mat(a[o + s1:o + s, o:o + s1] if lower else a[o:o + s1, o + s1:o + s], trans)
+        if forward:
+            rec(o, s1)
+            b[:, o + s1:o + s].addmm_(b[:, o:o + s1], m, alpha=-1)
+            rec(o + s1, s - s1)
+            return
+        rec(o + s1, s - s1)
+        b[:, o:o + s1].addmm_(b[:, o + s1:o + s], m, alpha=-1)
+        rec(o, s1)
+
+    rec(0, n)
+    return b
+
+
+# ---------------------------------------------------------------------------
+# TRMM — triangular matrix multiply
+
+
+def trmm(b, a, *, side: str, lower: bool, trans: str, unit: bool, nb: int, alpha=1.0):
+    """B <- alpha op(A) B (side='L') or alpha B op(A) (side='R'), in place.
+
+    Reference: ``multiplication/triangular`` (8 local cases,
+    ``multiplication/triangular/api.h:17-75``). The right side runs the
+    left recursion on the transposed view: B op(A) = (op(A)^T B^T)^T; for
+    trans='C', on B^H by conjugating ``b`` in place before and after.
+    """
+    if alpha != 1:
+        b.mul_(alpha)
+    if side == "L":
+        return _trmm_left(b, a, lower, trans, unit, nb)
+    if trans == "C":
+        # B A^H = ((A B^H)^H): b.T of conj(b) is B^H
+        b.conj_physical_()
+        _trmm_left(b.T, a, lower, "N", unit, nb)
+        return b.conj_physical_()
+    _trmm_left(b.T, a, lower, {"N": "T", "T": "N"}[trans], unit, nb)
+    return b
+
+
+def _trmm_left(b, a, lower, trans, unit, nb):
+    n = _check_tiled(a, nb)
+    if b.shape[0] != n:
+        raise ValueError(f"trmm: b has {b.shape[0]} rows, A is {n} x {n}")
+    low_block = (lower and trans == "N") or (not lower and trans != "N")
+
+    def rec(o, s):
+        if s <= nb:
+            b[o:o + s] = mm(take_tri(a[o:o + s, o:o + s], lower, unit), b[o:o + s],
+                            ta=Trans(trans))
+            return
+        s1 = _split(s, nb)
+        m = op_mat(a[o + s1:o + s, o:o + s1] if lower else a[o:o + s1, o + s1:o + s], trans)
+        # op(A)'s off-diagonal block adds m times the ORIGINAL source half
+        # into the other half. Each recursion writes only its own half, so
+        # the half that receives the cross term is recursed first, the
+        # cross term added while the source half is still unchanged, and
+        # the source half recursed last.
+        if low_block:
+            rec(o + s1, s - s1)
+            b[o + s1:o + s].addmm_(m, b[o:o + s1])
+            rec(o, s1)
+            return
+        rec(o, s1)
+        b[o:o + s1].addmm_(m, b[o + s1:o + s])
+        rec(o + s1, s - s1)
+
+    rec(0, n)
+    return b
+
+
+# ---------------------------------------------------------------------------
+# HERK / HER2K — hermitian rank-k updates (only the referenced triangle written)
+
+
 def _herk_inplace(c, o, s, a, *, lower, trans, alpha, beta, nb):
     """Triangle-only rank-k update of the diagonal block C[o:o+s, o:o+s],
     in place; ``a``'s n-dimension index 0 aligns with row/col ``o`` of that
@@ -172,3 +306,75 @@ def _herk_inplace(c, o, s, a, *, lower, trans, alpha, beta, nb):
         cb.addmm_(op_mat(x, ta), op_mat(y, tb), beta=beta, alpha=alpha)
 
     rec(o, s)
+
+
+def herk(c, a, *, lower: bool, trans: str, alpha=1.0, beta=1.0, nb: int = 128):
+    """C <- alpha op(A) op(A)^H + beta C on the referenced triangle, in place.
+
+    trans='N': op(A) = A (n x k); trans='C': op(A) = A^H (reference
+    tile::herk, ``blas/tile.h:473-479``). Off-diagonal quadrants are one
+    ``addmm_`` each (K2 for uplo U, trans C, alpha -1, beta 1 in f32);
+    only the leaf diagonal blocks compute a wasted half-triangle.
+    """
+    _herk_inplace(c, 0, c.shape[0], a, lower=lower, trans=trans, alpha=alpha, beta=beta,
+                  nb=nb)
+    return c
+
+
+def her2k(c, a, b, *, lower: bool, trans: str, alpha=1.0, beta=1.0, nb: int = 128):
+    """C <- alpha op(A) op(B)^H + conj(alpha) op(B) op(A)^H + beta C on the
+    referenced triangle, in place."""
+    ta = Trans.NoTrans if trans == "N" else Trans.ConjTrans
+    tb = Trans.ConjTrans if trans == "N" else Trans.NoTrans
+    calpha = alpha.conjugate()
+
+    def blk(x, lo, ln):
+        return x[lo:lo + ln] if trans == "N" else x[:, lo:lo + ln]
+
+    def two_into(cv, lo1, ln1, lo2, ln2, beta):
+        cv.addmm_(op_mat(blk(a, lo1, ln1), ta), op_mat(blk(b, lo2, ln2), tb),
+                  beta=beta, alpha=alpha)
+        cv.addmm_(op_mat(blk(b, lo1, ln1), ta), op_mat(blk(a, lo2, ln2), tb), alpha=calpha)
+
+    def rec(o, s):
+        if s <= nb:
+            cb = c[o:o + s, o:o + s]
+            upd = cb.clone()
+            two_into(upd, o, s, o, s, beta)
+            cb.copy_(set_tri(cb, upd, lower))
+            return
+        s1 = _split(s, nb)
+        rec(o, s1)
+        rec(o + s1, s - s1)
+        if lower:
+            two_into(c[o + s1:o + s, o:o + s1], o + s1, s - s1, o, s1, beta)
+        else:
+            two_into(c[o:o + s1, o + s1:o + s], o, s1, o + s1, s - s1, beta)
+
+    rec(0, c.shape[0])
+    return c
+
+
+# ---------------------------------------------------------------------------
+# HEMM — hermitian matrix multiply
+
+
+def hemm(c, a, b, *, side: str, lower: bool, alpha=1.0, beta=0.0):
+    """C <- alpha A B + beta C ('L') or alpha B A + beta C ('R'), in place;
+    A hermitian with only the ``lower``/upper triangle stored (reference
+    ``multiplication/hermitian/impl.h:68``). The full hermitian operand is
+    materialized once, so the product is one large GEMM."""
+    full = symmetrize_tri(a, lower)
+    if side == "L":
+        return c.addmm_(full, b, beta=beta, alpha=alpha)
+    return c.addmm_(b, full, beta=beta, alpha=alpha)
+
+
+# ---------------------------------------------------------------------------
+# GEMM
+
+
+def gemm(c, a, b, *, transa: str = "N", transb: str = "N", alpha=1.0, beta=0.0):
+    """C <- alpha op(A) op(B) + beta C in place (reference
+    ``multiplication/general``)."""
+    return c.addmm_(op_mat(a, transa), op_mat(b, transb), beta=beta, alpha=alpha)

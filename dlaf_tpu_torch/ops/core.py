@@ -21,6 +21,10 @@ from ..types import Trans
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
+# rows of the blocks hermitian_from_tri_ works through: its temporaries are
+# at most 4096 x 4096 (64 MiB in f32), against 4 GiB for n = 32768
+_SYM_BLOCK = 4096
+
 
 def op_mat(a: torch.Tensor, trans) -> torch.Tensor:
     """Apply a BLAS transposition op to a 2-D tensor (a view, no copy)."""
@@ -66,6 +70,22 @@ def symmetrize_tri(a: torch.Tensor, lower: bool) -> torch.Tensor:
     if lower:
         return torch.tril(a) + ct(torch.tril(a, -1))
     return torch.triu(a) + ct(torch.triu(a, 1))
+
+
+def hermitian_from_tri_(a: torch.Tensor, lower: bool) -> torch.Tensor:
+    """:func:`symmetrize_tri` in place on square ``a``: the other triangle
+    is overwritten with the conjugate transpose of the stored one, by
+    blocks of _SYM_BLOCK rows, so that no full-size temporary is made."""
+    n = a.shape[0]
+    for j0 in range(0, n, _SYM_BLOCK):
+        j1 = min(j0 + _SYM_BLOCK, n)
+        d = a[j0:j1, j0:j1]
+        d.copy_(symmetrize_tri(d, lower))
+        if lower:
+            a[j0:j1, j1:] = a[j1:, j0:j1].mH
+        else:
+            a[j1:, j0:j1] = a[j0:j1, j1:].mH
+    return a
 
 
 def set_tri(c: torch.Tensor, update: torch.Tensor, lower: bool) -> torch.Tensor:

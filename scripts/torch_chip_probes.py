@@ -1,7 +1,8 @@
 """Measurements of the PyTorch/H100 port beside chip_smoke.py's checks, on one CUDA card.
 
     python3 scripts/torch_chip_probes.py accumulation bf16_potrf profile dist_profile \
-        stage4_profile k5_levers[=BASELINE.cu] k3_levers[=BASELINE.cu,...] stage2 k3_loads
+        stage4_profile k5_levers[=BASELINE.cu] k3_levers[=BASELINE.cu,...] stage2 k3_loads \
+        blas_profile
 
 - ``accumulation``: K2 (``csrc/ksub_tf32x3.cu``) as built, where each
   32-deep k step is summed on the tensor cores from zero and then added
@@ -79,6 +80,11 @@
   the dense band) and ``eigh_large``'s at n = 32768 f32
   (``packed_to_strips`` and one recorded chase), a warm-up and three
   timed runs each, host clock after a synchronisation.
+- ``blas_profile``: ``torch.profiler`` over one ``trsm`` at A 32768 x
+  32768, B 32768 x 16384 f32, nb = 512 (chip_smoke.py's ``blas_main``) and
+  one ``eigh_gen`` at n = 8192 f32, band 128, nb = 512
+  (``eigh_gen_main``): the device-busy total, the idle share and the
+  largest device items; for ``eigh_gen`` also K1's and K3's device ms.
 
 Each probe prints JSON lines; the last line is the card's name and
 power limit as nvidia-smi gives them. Runs only where a CUDA device is.
@@ -667,10 +673,41 @@ def probe_stage4_profile() -> None:
          kernels=_top(rows, r["device_busy_ms"]))
 
 
+def probe_blas_profile() -> None:
+    """One ``trsm`` (side L, uplo L, trans N, A 32768 x 32768, B 32768 x
+    16384, nb = 512: chip_smoke.py's ``blas_main``) and one ``eigh_gen``
+    (n = 8192 f32, band 128, nb = 512: ``eigh_gen_main``) profiled."""
+    g = torch.Generator(device=DEV).manual_seed(22)
+    a = gen.random_triangular(g, 32768, torch.float32)
+    b = gen.random_general(g, (32768, 16384), torch.float32)
+    r = _profiled(lambda: dt.trsm(a, b, nb=512))
+    rows = r.pop("rows")
+    emit("blas_profile", call="trsm", m=32768, n=16384, nb=512, **r,
+         kernels=_top(rows, r["device_busy_ms"]))
+    del a, b
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=DEV).manual_seed(25)
+    a = gen.random_hermitian(g, 8192, torch.float32)
+    b = gen.random_hermitian_positive_definite(g, 8192, torch.float32)
+    dt.set_tune_parameters(leaf_block_size=512)
+    try:
+        potrf_tile.launches = 0
+        r = _profiled(lambda: dt.eigh_gen(a, b, band=128))
+    finally:
+        dt.reset_tune_parameters()
+    rows = r.pop("rows")
+    k1 = [x for x in rows if "potrf" in x[0]]
+    k3 = [x for x in rows if "band2tridiag" in x[0] or "chase" in x[0]]
+    emit("blas_profile", call="eigh_gen", n=8192, band=128, nb=512, **r,
+         k1_ms=sum(x[1] for x in k1) / 1e3, k1_wrapper_launches=potrf_tile.launches // 3,
+         k3_ms=sum(x[1] for x in k3) / 1e3, kernels=_top(rows, r["device_busy_ms"]))
+
+
 PROBES = {"accumulation": probe_accumulation, "bf16_potrf": probe_bf16_potrf,
           "profile": probe_profile, "dist_profile": probe_dist_profile,
           "stage4_profile": probe_stage4_profile, "k5_levers": probe_k5_levers,
-          "k3_levers": probe_k3_levers, "stage2": probe_stage2, "k3_loads": probe_k3_loads}
+          "k3_levers": probe_k3_levers, "stage2": probe_stage2, "k3_loads": probe_k3_loads,
+          "blas_profile": probe_blas_profile}
 
 
 if __name__ == "__main__":
