@@ -83,6 +83,21 @@ perturbed factor of B, and the triangular solver, triangular
 multiplication, gen_to_std and generalized eigensolver miniapps with
 ``--check``.
 
+The stage miniapps and the distributed BLAS-3: the five stage miniapps
+(reduction to band, band to tridiagonal through K3, tridiagonal solver,
+both back-transformations) with ``--check`` at n = 8192 f32, band 128, and
+``kernel_runner`` at nb = 512 (``potrf``: 64 K1 launches a run, its batch
+held to K1's plain version; ``ksub``: one K2 launch, held to K2's; beside
+planted faults); the distributed ``triangular_solver`` (left, and right
+once), ``general``, ``hermitian`` and ``triangular_multiplication`` at A
+32768 x 32768, B 32768 x 16384 and ``generalized_to_standard_dist`` at
+n = 32768 on a 1x1 grid, each timed beside its local counterpart and held
+to f64 beside a planted fault (a skipped diagonal-tile solve or k panel;
+a transpose missing its conjugate on a complex64 case), ``max_norm`` and
+``permute`` bit-equal to the local ones; and four gloo ranks on the card
+(2x2 at n = 8192, 1x4 at n = 4096) against the 1x1 grid's results,
+``ring_shift``, and the three distributed miniapps with ``--check``.
+
 Every phase prints one JSON line. Any failed check raises, so the exit code
 is not 0; nothing catches it. The last lines are the card's
 ``nvidia-smi`` name and power limit, one JSON line with the kernels, and
@@ -94,6 +109,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import functools
+import gc
 import io
 import json
 import subprocess
@@ -123,9 +139,15 @@ from dlaf_tpu_torch.comm.launch import spawn_grid  # noqa: E402
 from dlaf_tpu_torch.matrix import generators as gen  # noqa: E402
 from dlaf_tpu_torch.matrix.dist_matrix import global_indices  # noqa: E402
 from dlaf_tpu_torch.api.local import _pad_zero, _tri_operand  # noqa: E402
+from dlaf_tpu_torch.algos import general  # noqa: E402
+from dlaf_tpu_torch.algos.norm import max_norm_local  # noqa: E402
+from dlaf_tpu_torch.algos.permutations import permute_local  # noqa: E402
+from dlaf_tpu_torch.comm import collectives as coll  # noqa: E402
 from dlaf_tpu_torch.miniapps import (  # noqa: E402
-    miniapp_cholesky, miniapp_eigensolver, miniapp_gen_eigensolver, miniapp_gen_to_std,
-    miniapp_triangular_multiplication, miniapp_triangular_solver)
+    kernel_runner, miniapp_band_to_tridiag, miniapp_bt_band_to_tridiag,
+    miniapp_bt_reduction_to_band, miniapp_cholesky, miniapp_eigensolver,
+    miniapp_gen_eigensolver, miniapp_gen_to_std, miniapp_reduction_to_band,
+    miniapp_triangular_multiplication, miniapp_triangular_solver, miniapp_tridiag_solver)
 from dlaf_tpu_torch.ops import blocked, leaf  # noqa: E402
 from dlaf_tpu_torch.ops.kernels import _build  # noqa: E402
 from dlaf_tpu_torch.ops.core import ct, hermitian_from_tri_, symmetrize_tri  # noqa: E402
@@ -319,6 +341,12 @@ HEGST_SLICE = 4096
 # bound is 2000 in both. An H100 reads 5.8e-4 and 0.015 sound; one column
 # of B's factor scaled by 1.5 reads 12.8 and 1.65.
 GEN_BOUNDS = {"res": 0.1, "borth": 0.2}
+# kernel_runner's batch in stage_miniapps; the distributed BLAS-3 on grids
+# of four gloo ranks: n of the 2x2 and 1x4 grids, the inputs' seed, and
+# the route bound against the 1x1 grid in units of n eps32 max|want| (one
+# entry moved by 1e-3 reads 1.0 or more there)
+STAGE_COUNT = 64
+N_GRID_LINE, GRID_BLAS_SEED, GRID_BLAS_BOUND = 4096, 7, 0.05
 GRID_MINIAPP = ["-n", "4096", "-b", "512", "--grid-rows", "2", "--grid-cols", "2",
                 "--comm-backend", "gloo", "--check", "--nruns", "1", "--nwarmups", "0"]
 
@@ -2517,9 +2545,498 @@ def phase_eigh_gen_main() -> None:
          miniapps=miniapps)
 
 
+# ---------------------------------------------------------------------------
+# The stage miniapps and kernel_runner; the distributed BLAS-3 on a 1x1 grid
+# at full width and on grids of four gloo ranks sharing the card
+
+
+def _launch_path(kernel: str, path: str, count: int) -> None:
+    KERNELS[kernel].setdefault("launches_on_paths", {})[path] = count
+
+
+def _kernel_runner_checks() -> dict:
+    """kernel_runner's potrf (K1, one launch a tile) and ksub (K2) on the
+    miniapp's own inputs at nb = 512, count 64, against their plain
+    versions at K1's and K2's bounds, each beside a planted fault (one
+    tile's factor with a slab update skipped; K2's split cut to one TF32
+    term)."""
+    nb, count = NB_MAIN, STAGE_COUNT
+    table = kernel_runner.kernels(nb, count, torch.float32, DEV)
+    fn, args, _ = table["potrf"]
+    potrf_tile.launches = 0
+    got = fn(*args)
+    launches = potrf_tile.launches
+    spd = args[0]
+    dev = max(factor_deviation(got[i], potrf_tile_ref(spd[i]), K1_C) for i in range(count))
+    bad = got.clone()
+    bad[count // 2] = _planted(spd[count // 2], False, nb // 32 - 2)
+    planted = max(factor_deviation(bad[i], potrf_tile_ref(spd[i]), K1_C) for i in range(count))
+    require(launches == count, f"kernel_runner potrf: {launches} K1 launches for {count} tiles")
+    require(dev <= 1.0 < planted, f"kernel_runner potrf: deviation {dev}, planted {planted}")
+    fn, (c, x, y), _ = table["ksub"]
+    ksub_matmul.launches = 0
+    out = fn(c, x, y)
+    k2 = ksub_matmul.launches
+    want = ksub_matmul_ref(c.double(), x.double(), y.double())
+    bound = EPS32 * (2 * x.shape[0] * float(x.abs().max()) * float(y.abs().max())
+                     + float(c.abs().max()))
+    err = float((out.double() - want).abs().max())
+    planted_k2 = float((ksub_matmul_split_ref(c, x, y, terms=1).double() - want).abs().max())
+    require(k2 == 1, f"kernel_runner ksub: {k2} K2 launches")
+    require(err <= bound < planted_k2, f"kernel_runner ksub: err {err}, planted {planted_k2}, "
+            f"bound {bound}")
+    return {"potrf": {"k1_launches": launches, "deviation": dev, "planted_deviation": planted,
+                      "bound": 1.0},
+            "ksub": {"k2_launches": k2, "max_abs_err": err, "bound": bound,
+                     "planted_one_term_err": planted_k2}}
+
+
+def phase_stage_miniapps() -> None:
+    """The five stage miniapps with --check at eigh_main's configuration (n
+    = 8192 f32, band 128, a warm-up and one timed run), K3's launches
+    counted on each (band_to_tridiag: one a run; bt_band_to_tridiag: one
+    for its record); then kernel_runner at nb = 512: potrf (64 K1 launches
+    a run), ksub (one K2 launch), trsm and gemm, with the potrf batch and
+    the ksub output held to K1's and K2's plain versions."""
+    runs = {}
+    common = ["-n", str(N_EIGH), "--band-size", str(B_EIGH), "--check", "--nruns", "1",
+              "--nwarmups", "1"]
+    for mod, k3 in ((miniapp_reduction_to_band, 0), (miniapp_band_to_tridiag, 2),
+                    (miniapp_tridiag_solver, 0), (miniapp_bt_band_to_tridiag, 1),
+                    (miniapp_bt_reduction_to_band, 0)):
+        name = mod.__name__.rsplit(".", 1)[1]
+        _counters_reset()
+        t0 = time.perf_counter()
+        out = _miniapp(common, mod)
+        counts = _counters()
+        require("check: PASSED" in out, f"{name}: {out}")
+        require(counts["band_to_tridiag_strips"] == k3, f"{name}: K3 launches {counts}")
+        runs[name] = {"lines": out.strip().splitlines(), "seconds": time.perf_counter() - t0,
+                      "k3_launches": counts["band_to_tridiag_strips"]}
+        torch.cuda.empty_cache()
+    _launch_path("band_to_tridiag_strips", "miniapp_band_to_tridiag n=8192 (warm-up + run)",
+                 runs["miniapp_band_to_tridiag"]["k3_launches"])
+    _launch_path("band_to_tridiag_strips", "miniapp_bt_band_to_tridiag n=8192",
+                 runs["miniapp_bt_band_to_tridiag"]["k3_launches"])
+    kr = {}
+    for kernel in ("potrf", "ksub", "trsm", "gemm"):
+        _counters_reset()
+        out = _miniapp(["--kernel", kernel, "-b", str(NB_MAIN), "--count", str(STAGE_COUNT),
+                        "--nruns", "2", "--nwarmups", "1"], kernel_runner)
+        counts = _counters()
+        lines = out.strip().splitlines()
+        require(len(lines) == 2 and all("us/tile" in l for l in lines), f"kernel_runner: {out}")
+        kr[kernel] = {"lines": lines, "us_per_tile": [float(l.split(": ")[1].split(" us")[0])
+                                                       for l in lines],
+                      "k1_launches": counts["potrf_tile"], "k2_launches": counts["ksub_matmul"]}
+    require(kr["potrf"]["k1_launches"] == 3 * STAGE_COUNT and kr["ksub"]["k2_launches"] == 3,
+            f"kernel_runner launches: {kr}")
+    _launch_path("potrf_tile", f"kernel_runner potrf x{STAGE_COUNT} (a run)", STAGE_COUNT)
+    _launch_path("ksub_matmul", "kernel_runner ksub (a run)", 1)
+    checks = _kernel_runner_checks()
+    emit("stage_miniapps", n=N_EIGH, band=B_EIGH, dtype="float32", miniapps=runs,
+         kernel_runner={"nb": NB_MAIN, "count": STAGE_COUNT, **kr}, kernel_checks=checks)
+
+
+def _dm(x, pad=False, grid=None):
+    return dt.DistMatrix.from_global(x, NB_MAIN, grid or dt.Grid((1, 1)), pad_identity=pad)
+
+
+def _skip_panel(*args, **kw):
+    """Planted fault for general._a_panel: this k panel contributes nothing."""
+    return None
+
+
+def _skip_tile_solve(b, a, **kw):
+    """Planted fault for blocked.trsm: the diagonal-tile solve left out."""
+    return b
+
+
+def _to64(t: torch.Tensor) -> torch.Tensor:
+    return t.to(_wide(t.dtype))
+
+
+def _blocks(n: int):
+    return [(i, min(i + 4096, n)) for i in range(0, n, 4096)]
+
+
+def _tri_reading(a, x, b, side="L") -> float:
+    """max|op(A) X - B| / (m eps32 max|B|) in f64 (complex128), by 4096 x
+    4096 blocks of the product, so that no f64 copy of A is made."""
+    m = a.shape[0]
+    err = 0.0
+    if side == "L":
+        for c0, c1 in _blocks(x.shape[1]):
+            xc = _to64(x[:, c0:c1])
+            for r0, r1 in _blocks(m):
+                err = max(err, float((_to64(a[r0:r1]) @ xc).sub_(_to64(b[r0:r1, c0:c1]))
+                                     .abs().max()))
+    else:
+        for c0, c1 in _blocks(m):
+            ac = _to64(a[:, c0:c1])
+            for r0, r1 in _blocks(x.shape[0]):
+                err = max(err, float((_to64(x[r0:r1]) @ ac).sub_(_to64(b[r0:r1, c0:c1]))
+                                     .abs().max()))
+    return err / (m * EPS32 * float(b.abs().max()))
+
+
+def _product_reading(a, b, y) -> float:
+    """max|Y - A B| / (m eps32 max|A B|) in f64 (complex128), by 4096 x 4096
+    blocks (the units of blas_main's trmm)."""
+    err = ymax = 0.0
+    for c0, c1 in _blocks(b.shape[1]):
+        bc = _to64(b[:, c0:c1])
+        for r0, r1 in _blocks(a.shape[0]):
+            ref = _to64(a[r0:r1]) @ bc
+            ymax = max(ymax, float(ref.abs().max()))
+            err = max(err, float(ref.sub_(_to64(y[r0:r1, c0:c1])).abs().max()))
+    return err / (a.shape[0] * EPS32 * ymax)
+
+
+def _dist_and_local(name, dist_fn, local_fn, reading, planted_ctx, extra=None) -> dict:
+    """A distributed call and its local counterpart, each a warm-up and two
+    timed runs (in turns); the distributed result's reading, the local's,
+    and the reading of the distributed call under a planted fault. Only
+    the first timed result of each is kept."""
+    dist_fn()
+    local_fn()
+    secs = {"dist": [], "local": []}
+    out = {}
+    for which in ("dist", "local", "local", "dist"):
+        t, r = _sync_s(dist_fn if which == "dist" else local_fn)
+        secs[which].append(t)
+        out.setdefault(which, r)
+        del r
+    res = {"seconds": secs, "dist_over_local": min(secs["dist"]) / min(secs["local"]),
+           "reading": reading(out["dist"]), "local_reading": reading(out["local"])}
+    del out
+    torch.cuda.empty_cache()
+    with planted_ctx():
+        res["planted_reading"] = reading(dist_fn())
+    torch.cuda.empty_cache()
+    require(res["reading"] <= BLAS_BOUND < res["planted_reading"],
+            f"dist {name}: reading {res['reading']}, planted {res['planted_reading']}")
+    if extra:
+        res.update(extra)
+    return res
+
+
+def _conj_case() -> dict:
+    """hermitian_multiplication L and generalized_to_standard_dist on a
+    complex64 case at n = 2048 (1x1 grid, nb = 512), each against f64 in
+    blas_main's units, beside the planted fault of a transpose that drops
+    its conjugate (hemm's transposed stored row; gen_to_std's Y^H)."""
+    n = 2048
+    g = torch.Generator(device=DEV).manual_seed(31)
+    a = gen.random_hermitian(g, n, torch.complex64)
+    b = gen.random_general(g, (n, n // 2), torch.complex64)
+    bs_ = gen.random_hermitian_positive_definite(g, n, torch.complex64)
+    l = torch.linalg.cholesky(bs_)
+    a64, l64 = a.to(torch.complex128), l.to(torch.complex128)
+    stored = torch.tril(a) + torch.triu(torch.full_like(a, 7.0), 1)
+
+    def no_conj(real):
+        def f(*args, **kw):
+            return real(*args, **kw).conj()
+        return f
+
+    def hemm_reading(y):
+        return _product_reading(a64, b, y)
+
+    def hemm():
+        return dt.hermitian_multiplication(_dm(stored), _dm(b), uplo="L").data[:n, :n // 2]
+
+    def g2s():
+        return dt.generalized_to_standard_dist(_dm(a), _dm(l, True)).data[:n, :n]
+
+    ref = torch.linalg.solve_triangular(l64, torch.linalg.solve_triangular(
+        l64, a64, upper=False).mH, upper=False)
+
+    def g2s_reading(r):
+        return float((r.to(torch.complex128) - ref).abs().max()) / (
+            n * EPS32 * float(ref.abs().max()))
+
+    def transpose_no_conj(real):
+        def f(self, conj=True):
+            return real(self, conj=False)
+        return f
+
+    out = {"n": n, "dtype": "complex64", "hemm": {"reading": hemm_reading(hemm())},
+           "gen_to_std": {"reading": g2s_reading(g2s())}}
+    with _patched(general, "_row_panel_as_col", no_conj):
+        out["hemm"]["planted_reading"] = hemm_reading(hemm())
+    with _patched(dt.DistMatrix, "transpose", transpose_no_conj):
+        out["gen_to_std"]["planted_reading"] = g2s_reading(g2s())
+    for k in ("hemm", "gen_to_std"):
+        r = out[k]
+        require(r["reading"] <= BLAS_BOUND < r["planted_reading"],
+                f"complex64 {k}: reading {r['reading']}, planted {r['planted_reading']}")
+    return out
+
+
+def phase_dist_blas_main() -> None:
+    """The distributed BLAS-3 on a 1x1 grid at full width, f32, nb = 512:
+    A 32768 x 32768, B 32768 x 16384 (blas_main's shapes).
+    ``triangular_solver`` L/L/N and side R once, ``general``,
+    ``hermitian`` (L) and ``triangular_multiplication`` (L/L), and
+    ``generalized_to_standard_dist`` at n = 32768 (B's factor by potrf,
+    through K1), each timed beside its local counterpart (trsm, gemm,
+    hemm, trmm, hegst) in the same call and held to f64 in blas_main's
+    units beside a planted fault (a skipped diagonal-tile solve or k
+    panel); ``max_norm`` G and ``permute`` of rows bit-equal to the local
+    functions (beside a moved entry and two swapped indices); and the
+    complex64 case at n = 2048 beside a transpose missing its conjugate.
+    The device memory still allocated when it starts is recorded, before
+    and after a garbage collection (what earlier phases left behind)."""
+    held = torch.cuda.memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    m, n = N_BLAS, NRHS_BLAS
+    g = torch.Generator(device=DEV).manual_seed(30)
+    out = {"m": m, "n": n, "nb": NB_MAIN, "grid": [1, 1], "dtype": "float32",
+           "allocated_gib_at_start": held / 2**30,
+           "allocated_gib_after_gc": torch.cuda.memory_allocated() / 2**30}
+    t0 = time.perf_counter()
+    # at these orders the 1x1 shards are the global matrices (no padding):
+    # the local calls take the shards themselves, so that A is held once
+    da = _dm(gen.random_triangular(g, m, torch.float32, lower=True), True)
+    db = _dm(gen.random_general(g, (m, n), torch.float32))
+    a, b = da.data, db.data
+    kw = dict(uplo="L", trans="N")
+    out["triangular_solver"] = _dist_and_local(
+        "triangular_solver", lambda: dt.triangular_solver(da, db, **kw).data,
+        lambda: dt.trsm(a, b, nb=NB_MAIN, **kw), lambda x: _tri_reading(a, x, b),
+        lambda: _nth_call(blocked, "trsm", m // NB_MAIN // 2, _skip_tile_solve),
+        {"flops": m * m * n})
+    dbt = _dm(b.T.contiguous())
+    t_r, x = _timed(lambda: dt.triangular_solver(da, dbt, side="R", **kw).data, 1)
+    reading_r = _tri_reading(a, x, dbt.data, side="R")
+    del x
+    t_l, x = _timed(lambda: dt.trsm(a, dbt.data, side="R", nb=NB_MAIN, **kw), 1)
+    del x, dbt
+    out["triangular_solver_right"] = {"seconds": t_r, "local_seconds": t_l,
+                                      "reading": reading_r}
+    require(reading_r <= BLAS_BOUND, f"dist trsm R: {out['triangular_solver_right']}")
+    out["triangular_multiplication"] = _dist_and_local(
+        "triangular_multiplication", lambda: dt.triangular_multiplication(da, db, uplo="L").data,
+        lambda: dt.trmm(a, b, uplo="L", nb=NB_MAIN), lambda y: _product_reading(a, b, y),
+        lambda: _nth_call(general, "_a_panel", m // NB_MAIN // 2, _skip_panel),
+        {"flops": m * m * n})
+    del a, da
+    torch.cuda.empty_cache()
+    # general and hermitian multiplication: A 32768^2 general / hermitian
+    da = _dm(gen.random_hermitian(g, m, torch.float32))
+    a = da.data
+    out["general_multiplication"] = _dist_and_local(
+        "general_multiplication", lambda: dt.general_multiplication(da, db).data,
+        lambda: dt.gemm(a, b), lambda y: _product_reading(a, b, y),
+        lambda: _nth_call(general, "_a_panel", m // NB_MAIN // 2, _skip_panel),
+        {"flops": 2 * m * m * n})
+    dstored = _dm(torch.tril(a))
+    out["hermitian_multiplication"] = _dist_and_local(
+        "hermitian_multiplication",
+        lambda: dt.hermitian_multiplication(dstored, db, uplo="L").data,
+        lambda: dt.hemm(a, b, uplo="L"), lambda y: _product_reading(a, b, y),
+        lambda: _nth_call(general, "_a_panel", m // NB_MAIN // 2, _skip_panel),
+        {"flops": 2 * m * m * n})
+    del dstored, db, b
+    torch.cuda.empty_cache()
+    # max_norm G and permute of rows, bit-equal to the local functions
+    secs_norm, nrm = _timed(lambda: dt.max_norm(da, "G"), 2)
+    secs_lnorm, lnrm = _timed(lambda: max_norm_local(a, "G"), 2)
+    moved = _dm(a)
+    moved.data[m // 3, m // 5] = 2 * float(lnrm)
+    planted_norm = dt.max_norm(moved, "G")
+    del moved
+    perm = torch.randperm(m, generator=g, device=DEV)
+    secs_perm, pd = _timed(lambda: dt.permute(da, perm, axis=0).data, 2)
+    secs_lperm, pl = _timed(lambda: permute_local(a, perm, axis=0), 2)
+    perm_equal = torch.equal(pd, pl)
+    del pd
+    swapped = perm.clone()
+    swapped[[0, 1]] = swapped[[1, 0]]
+    planted_perm_equal = torch.equal(dt.permute(da, swapped, axis=0).data, pl)
+    del pl
+    out["max_norm"] = {"seconds": secs_norm, "local_seconds": secs_lnorm,
+                       "equal": bool(nrm == lnrm), "planted_equal": bool(planted_norm == lnrm)}
+    out["permute_rows"] = {"seconds": secs_perm, "local_seconds": secs_lperm,
+                           "bit_equal": perm_equal, "planted_bit_equal": planted_perm_equal}
+    require(out["max_norm"]["equal"] and not out["max_norm"]["planted_equal"],
+            f"dist max_norm: {out['max_norm']}")
+    require(perm_equal and not planted_perm_equal, f"dist permute: {out['permute_rows']}")
+    torch.cuda.empty_cache()
+    # generalized_to_standard_dist at n = 32768 against the K1 factor of B
+    bspd = gen.random_hermitian_positive_definite(g, m, torch.float32)
+    potrf_tile.launches = 0
+    dl = _dm(dt.potrf(bspd, uplo="L", nb=NB_MAIN), True)
+    k1 = potrf_tile.launches
+    del bspd
+    l = dl.data
+    torch.cuda.empty_cache()
+    out["generalized_to_standard_dist"] = _dist_and_local(
+        "generalized_to_standard_dist",
+        lambda: dt.generalized_to_standard_dist(da, dl).data,
+        lambda: dt.hegst(a, l, nb=NB_MAIN), lambda r: _hegst_reading(r, a, l)["reading"],
+        lambda: _nth_call(blocked, "trsm", m // NB_MAIN // 2, _skip_tile_solve),
+        {"flops": 2 * m**3, "potrf_k1_launches": k1})
+    require(k1 > 0, "gen_to_std's potrf launched K1")
+    _launch_path("potrf_tile", "dist_blas_main potrf n=32768 (gen_to_std's factor)", k1)
+    del a, l, da, dl
+    torch.cuda.empty_cache()
+    out["complex64_conj"] = _conj_case()
+    emit("dist_blas_main", bound=BLAS_BOUND, seconds=time.perf_counter() - t0,
+         units={"triangular_solver": "max|op(A)X - B| / (m eps32 max|B|)",
+                "multiplications": "max|Y - Y64| / (m eps32 max|Y64|)",
+                "generalized_to_standard_dist": "max|R - R64| / (n eps32 max|R64|) on "
+                                                "R[:4096, :], R[:, :4096]"},
+         **out)
+
+
+def _grid_compare(got, want, exact: bool) -> dict:
+    """The grid's gathered result against the 1x1 grid's: bit-equal
+    (reading 0, else 1), or max|got - want| / (n eps32 max|want|) within
+    GRID_BLAS_BOUND; and the same comparison with the largest entry moved
+    by 1e-3 of itself (1.03 in the second units at n = 8192)."""
+    def reading(x):
+        if exact:
+            return float(not torch.equal(x, want))
+        return float((x - want).abs().max()) / (want.shape[0] * EPS32 *
+                                                float(want.abs().max()))
+
+    r = reading(got)
+    moved = got.clone().view(-1)
+    j = int(want.abs().argmax())
+    moved[j] += 1e-3 * float(want.view(-1)[j])
+    return {"reading": r, "planted_reading": reading(moved.view(got.shape)), "exact": exact}
+
+
+def _blas_grid_rank(grid, device) -> dict:
+    """One rank of phase_dist_blas_grid: every new function on the 2x2
+    grid at n = 8192, the all-to-all transpose and a right-side solve on a
+    1x4 grid of the same ranks at n = 4096, each gathered and (rank 0)
+    compared with the 1x1 grid's result on the same card; ring_shift on
+    both axes; then the three distributed miniapps with --check."""
+    n, nb = N_GRID, NB_MAIN
+    g = torch.Generator(device=device).manual_seed(GRID_BLAS_SEED)
+    tri = gen.random_triangular(g, n, torch.float32, lower=True)
+    herm = gen.random_hermitian(g, n, torch.float32)
+    b = gen.random_general(g, (n, n // 2), torch.float32)
+    bspd = gen.random_hermitian_positive_definite(g, n, torch.float32)
+    l = torch.linalg.cholesky(bspd)
+    del bspd
+    perm = torch.randperm(n, generator=g, device=device)
+    one = dt.Grid((1, 1))
+
+    def dm(x, grid_, pad=False):
+        return dt.DistMatrix.from_global(x, nb, grid_, pad_identity=pad)
+
+    calls = {
+        "transpose": (lambda G: dm(b, G).transpose(), True),
+        "symmetrize": (lambda G: dm(herm, G).symmetrize(lower=True), True),
+        "permute_rows": (lambda G: dt.permute(dm(b, G), perm, axis=0), True),
+        "permute_cols": (lambda G: dt.permute(dm(b.T.contiguous(), G), perm, axis=1), True),
+        "triangular_solver": (lambda G: dt.triangular_solver(dm(tri, G, True), dm(b, G)), False),
+        "general_multiplication": (lambda G: dt.general_multiplication(dm(herm, G), dm(b, G)),
+                                   False),
+        "hermitian_multiplication": (lambda G: dt.hermitian_multiplication(
+            dm(torch.tril(herm), G), dm(b, G), uplo="L"), False),
+        "triangular_multiplication": (lambda G: dt.triangular_multiplication(
+            dm(tri, G), dm(b, G), uplo="L"), False),
+        "generalized_to_standard_dist": (lambda G: dt.generalized_to_standard_dist(
+            dm(herm, G), dm(l, G, True)), False),
+    }
+    out = {"rank": grid.rank, "coords": grid.coords, "seconds": {}, "compare": {}}
+    for name, (fn, exact) in calls.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(grid)
+        torch.cuda.synchronize()
+        out["seconds"][name] = time.perf_counter() - t0
+        got = res.to_global()
+        if grid.rank == 0:
+            out["compare"][name] = _grid_compare(got, fn(one).to_global(), exact)
+        del res, got
+    nrm = dt.max_norm(dm(herm, grid), "G")
+    out["max_norm_equal"] = bool(nrm == max_norm_local(herm, "G"))
+    out["ring"] = {}
+    for axis in ("r", "c"):
+        for shift in (1, -1):
+            x = torch.tensor([float(grid.rank)], device=device)
+            out["ring"][f"{axis}{shift:+d}"] = float(coll.ring_shift(x, axis, grid, shift)[0])
+    # the same ranks as a 1x4 grid: the tile-slot all-to-all transpose and
+    # a right-side solve (X A = B through two transposes)
+    line = dt.Grid((1, 4))
+    n4 = N_GRID_LINE
+    a4, b4 = tri[:n4, :n4], b[:n4 // 2, :n4].contiguous()
+    for name, fn, exact in (
+            ("transpose_1x4", lambda G: dm(b[:n4, :n4 // 2], G).transpose(conj=False), True),
+            ("triangular_solver_right_1x4", lambda G: dt.triangular_solver(
+                dm(a4, G, True), dm(b4, G), side="R"), False)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(line)
+        torch.cuda.synchronize()
+        out["seconds"][name] = time.perf_counter() - t0
+        got = res.to_global()
+        if grid.rank == 0:
+            out["compare"][name] = _grid_compare(got, fn(one).to_global(), exact)
+    del tri, herm, b, l
+    torch.cuda.empty_cache()
+    out["miniapps"] = {}
+    for name, mod in (("triangular_solver", miniapp_triangular_solver),
+                      ("triangular_multiplication", miniapp_triangular_multiplication),
+                      ("gen_to_std", miniapp_gen_to_std)):
+        potrf_tile.launches = 0
+        out["miniapps"][name] = {"out": _miniapp(GRID_MINIAPP, mod),
+                                 "k1_launches": potrf_tile.launches}
+    return out
+
+
+def phase_dist_blas_grid() -> None:
+    """The distributed BLAS-3 on four gloo ranks sharing the card
+    (``spawn_grid``): the 2x2 grid at n = 8192, nb = 512, every new function
+    against the 1x1 grid's result entry by entry (transpose, symmetrize and
+    permute bit-equal, the rest within GRID_BLAS_BOUND in units of n eps32
+    max|want|), each comparison shown one entry moved by 1e-3; max_norm
+    equal to the local one; ring_shift on both axes; the 1x4 grid at
+    n = 4096 (the all-to-all transpose, a right-side solve); and the three
+    distributed miniapps with --check (gen_to_std's potrf through K1 on
+    every rank)."""
+    t0 = time.perf_counter()
+    outs = spawn_grid(_blas_grid_rank, (2, 2), backend="gloo", device="cuda", timeout=900)
+    seconds = time.perf_counter() - t0
+    r0 = outs[0]
+    for name, c in r0["compare"].items():
+        bound = 0.0 if c["exact"] else GRID_BLAS_BOUND
+        require(c["reading"] <= bound < c["planted_reading"],
+                f"grid {name}: reading {c['reading']}, planted {c['planted_reading']}")
+    for r in outs:
+        require(r["max_norm_equal"], f"grid rank {r['rank']}: max_norm differs from local")
+        p, q = r["coords"]
+        want = {"r+1": ((p - 1) % 2) * 2 + q, "r-1": ((p + 1) % 2) * 2 + q,
+                "c+1": p * 2 + (q - 1) % 2, "c-1": p * 2 + (q + 1) % 2}
+        require(r["ring"] == {k: float(v) for k, v in want.items()},
+                f"grid rank {r['rank']}: ring_shift {r['ring']}")
+        require(r["miniapps"]["gen_to_std"]["k1_launches"] > 0,
+                f"grid rank {r['rank']}: gen_to_std's potrf launched no K1")
+    for name, m in r0["miniapps"].items():
+        require("check: PASSED" in m["out"], f"distributed miniapp {name}: {m['out']}")
+    require(all(m["out"] == "" for r in outs[1:] for m in r["miniapps"].values()),
+            "only rank 0 of the miniapps prints")
+    _launch_path("potrf_tile", "dist_blas_grid miniapp_gen_to_std n=4096 (per rank)",
+                 r0["miniapps"]["gen_to_std"]["k1_launches"])
+    emit("dist_blas_grid", n=N_GRID, n_line=N_GRID_LINE, nb=NB_MAIN, grids=[[2, 2], [1, 4]],
+         backend="gloo", ranks_on_one_card=4, seconds=seconds, bound=GRID_BLAS_BOUND,
+         units="max|got - want| / (n eps32 max|want|), want the 1x1 grid's result",
+         compare=r0["compare"], rank_seconds=[r["seconds"] for r in outs],
+         ring=[r["ring"] for r in outs],
+         miniapps={k: v["out"].strip().splitlines() for k, v in r0["miniapps"].items()})
+
+
 PHASES = (phase_device, phase_k1, phase_k2, phase_main, phase_miniapp, phase_info,
           phase_k6, phase_dist_main, phase_dist_grid, phase_k3, phase_eigh_main, phase_eigh_c64, phase_miniapp_eigensolver, phase_k45,
-          phase_eigh_large_main, phase_eigh_large_cases, phase_blas_main, phase_eigh_gen_main)
+          phase_eigh_large_main, phase_eigh_large_cases, phase_blas_main, phase_eigh_gen_main,
+          phase_stage_miniapps, phase_dist_blas_main, phase_dist_blas_grid)
 
 
 def main() -> None:

@@ -9,12 +9,17 @@ problems (``eigh_large``, ``eigvalsh_large``), and the generalized
 eigensolver (``hegst``, ``eigh_gen``), with hand-written Hopper kernels
 for the TPU kernels on their paths (``ops/kernels``, sources in
 ``csrc/``); the local auxiliaries (``algos/norm.py``,
-``algos/permutations.py``), the tuning parameters, the matrix generators
-and six miniapps (Cholesky, eigensolver, triangular solver and
-multiplication, gen_to_std, generalized eigensolver). The distributed data
-model (``dist``, ``comm`` on ``torch.distributed``, ``DistMatrix``) and the
-distributed Cholesky (``cholesky``, ``cholesky_info``, with kernel K6) run
-one process per rank of a process ``Grid``. The package never imports JAX.
+``algos/permutations.py``), the tuning parameters, the matrix generators,
+eleven miniapps (Cholesky, eigensolver, triangular solver and
+multiplication, gen_to_std, generalized eigensolver, and the five stage
+miniapps) and ``kernel_runner``. The distributed data model (``dist``,
+``comm`` on ``torch.distributed``, ``DistMatrix`` with ``transpose`` and
+``symmetrize``), the distributed Cholesky (``cholesky``,
+``cholesky_info``, with kernel K6) and the distributed BLAS-3
+(``triangular_solver``, ``general_multiplication``,
+``hermitian_multiplication``, ``triangular_multiplication``,
+``generalized_to_standard_dist``, ``max_norm``, ``permute``) run one
+process per rank of a process ``Grid``. The package never imports JAX.
 """
 from . import types
 from .algos.cholesky import cholesky, cholesky_info
@@ -24,6 +29,12 @@ from .algos.eigensolver.large import eigh_large, eigvalsh_large
 from .algos.eigensolver.red2band import extract_band, reduction_to_band
 from .algos.eigensolver.tridiag_dc import tridiag_eigh
 from .algos.gen_to_std import generalized_to_standard as hegst
+from .algos.gen_to_std import generalized_to_standard_dist
+from .algos.general import (general_multiplication, hermitian_multiplication,
+                            triangular_multiplication)
+from .algos.norm import max_norm
+from .algos.permutations import permute
+from .algos.triangular import triangular_solver
 from .api.local import gemm, hemm, herk, potrf, potrf_info, trmm, trsm
 from .comm.mesh import Grid
 from .matrix.dist_matrix import DistMatrix
@@ -33,7 +44,10 @@ from .tune import (TuneParameters, from_dict, get_tune_parameters,
 
 __all__ = ["types", "potrf", "potrf_info", "trsm", "trmm", "hemm", "herk", "gemm",
            "eigh", "eigvalsh", "eigh_gen", "hegst", "eigh_large", "eigvalsh_large",
-           "cholesky", "cholesky_info", "DistMatrix", "Grid", "TuneParameters",
+           "cholesky", "cholesky_info", "triangular_solver", "general_multiplication",
+           "hermitian_multiplication", "triangular_multiplication",
+           "generalized_to_standard_dist", "max_norm", "permute", "DistMatrix", "Grid",
+           "TuneParameters",
            "from_dict", "get_tune_parameters", "reset_tune_parameters",
            "set_tune_parameters"]
 

@@ -4,8 +4,10 @@ Counterpart of :mod:`dlaf_tpu.comm.collectives`. The JAX functions run
 inside one SPMD program and take a mesh axis; these run on every rank of a
 :class:`~dlaf_tpu_torch.comm.mesh.Grid` and take the grid too. Broadcast is
 ``dist.broadcast`` from the owner's global rank (JAX: a masked ``psum``),
-gather is ``all_gather`` over the axis group, returned in coordinate order.
-Every rank of the axis (or grid) must make the same call in the same order.
+gather is ``all_gather`` over the axis group, returned in coordinate order,
+the ring shift one ``batch_isend_irecv`` (JAX: ``ppermute``) and the
+all-to-all ``all_to_all_single`` over equal slots. Every rank of the axis
+(or grid) must make the same call in the same order.
 
 Over a size-1 axis each function is the identity: it returns its input, so
 the result may share storage with it (callers pass tensors they computed;
@@ -26,6 +28,13 @@ from .mesh import Grid
 
 def _via_host(t: torch.Tensor, group) -> bool:
     return t.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def _wire(t: torch.Tensor) -> torch.Tensor:
+    """The contiguous real tensor that carries ``t`` (complex as pairs of
+    reals: the point-to-point and all-to-all calls take no complex)."""
+    t = t.contiguous()
+    return torch.view_as_real(t) if t.is_complex() else t
 
 
 def _broadcast_(buf: torch.Tensor, src: int, group) -> None:
@@ -67,9 +76,7 @@ def bcast2d(x: torch.Tensor, owner_rc, grid: Grid) -> torch.Tensor:
     return buf
 
 
-def allreduce_sum(x: torch.Tensor, axis, grid: Grid) -> torch.Tensor:
-    """Sum over ``axis`` (None: the whole grid) as a new tensor
-    (reference ``scheduleAllReduce``)."""
+def _allreduce(x: torch.Tensor, axis, grid: Grid, op) -> torch.Tensor:
     n = grid.size if axis is None else grid.axis_size(axis)
     if n == 1:
         return x
@@ -77,10 +84,22 @@ def allreduce_sum(x: torch.Tensor, axis, grid: Grid) -> torch.Tensor:
     out = x.clone(memory_format=torch.contiguous_format)
     if _via_host(out, group):
         host = out.cpu()
-        dist.all_reduce(host, group=group)
+        dist.all_reduce(host, op=op, group=group)
         return out.copy_(host)
-    dist.all_reduce(out, group=group)
+    dist.all_reduce(out, op=op, group=group)
     return out
+
+
+def allreduce_sum(x: torch.Tensor, axis, grid: Grid) -> torch.Tensor:
+    """Sum over ``axis`` (None: the whole grid) as a new tensor
+    (reference ``scheduleAllReduce``)."""
+    return _allreduce(x, axis, grid, dist.ReduceOp.SUM)
+
+
+def allreduce_max(x: torch.Tensor, axis, grid: Grid) -> torch.Tensor:
+    """Maximum over ``axis`` (None: the whole grid) of a real tensor, as a
+    new tensor (JAX: ``lax.pmax``)."""
+    return _allreduce(x, axis, grid, dist.ReduceOp.MAX)
 
 
 def allgather_tiles(x: torch.Tensor, axis, grid: Grid) -> torch.Tensor:
@@ -106,3 +125,55 @@ def allgather_tiles(x: torch.Tensor, axis, grid: Grid) -> torch.Tensor:
         parts = [parts[dist.get_group_rank(group, r)] for r in ranks]
     out = torch.stack(parts)
     return out.to(x.device) if host else out
+
+
+def _exchanged(x: torch.Tensor, out: torch.Tensor, run) -> torch.Tensor:
+    """``run(send, recv)`` with x and ``out`` as the real tensors that carry
+    them, staged through the host where the default group is gloo and they
+    are on the card; returns ``out``."""
+    send, recv = _wire(x), _wire(out)
+    host = _via_host(send, None)
+    if host:
+        send, recv = send.cpu(), torch.empty(recv.shape, dtype=recv.dtype)
+    run(send, recv)
+    if host:
+        _wire(out).copy_(recv)
+    return out
+
+
+def sendrecv(x: torch.Tensor, dst: int, src: int, shape) -> torch.Tensor:
+    """Send ``x`` to global rank ``dst`` and receive from global rank
+    ``src`` a new tensor of ``shape`` (x's dtype and device). Both are
+    posted together as one ``batch_isend_irecv``, so that ranks that swap
+    with each other cannot deadlock. Neither peer may be this rank."""
+    def run(send, recv):
+        for req in dist.batch_isend_irecv([dist.P2POp(dist.isend, send, dst),
+                                           dist.P2POp(dist.irecv, recv, src)]):
+            req.wait()
+
+    return _exchanged(x, torch.empty(shape, dtype=x.dtype, device=x.device), run)
+
+
+def ring_shift(x: torch.Tensor, axis: str, grid: Grid, shift: int = 1) -> torch.Tensor:
+    """Cyclic shift along ``axis``: the rank at coordinate i receives the
+    tensor of coordinate i - shift, as a new tensor (reference P2P ring in
+    band_to_tridiag, ``band_to_tridiag/mc.h:438-662``; JAX ``ppermute``).
+    ``x`` has the same shape on every rank of the axis. The identity on a
+    size-1 axis and for a shift that is a multiple of the axis size."""
+    n = grid.axis_size(axis)
+    if shift % n == 0:
+        return x
+    ranks = grid.axis_ranks(axis)
+    i = grid.axis_index(axis)
+    return sendrecv(x, ranks[(i + shift) % n], ranks[(i - shift) % n], x.shape)
+
+
+def all_to_all_slots(x: torch.Tensor, grid: Grid) -> torch.Tensor:
+    """All-to-all over the whole grid: ``x`` (D, ...) holds one equal slot
+    per global rank (D = P·Q, rank order); returns (D, ...) whose slot r
+    came from rank r (one ``all_to_all_single`` of equal splits, so that
+    gloo needs no variable sizes). The identity on a 1x1 grid."""
+    if grid.size == 1:
+        return x
+    out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    return _exchanged(x, out, lambda send, recv: dist.all_to_all_single(recv, send))

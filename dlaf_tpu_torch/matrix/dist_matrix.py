@@ -5,16 +5,16 @@ Counterpart of :class:`dlaf_tpu.matrix.dist_matrix.DistMatrix` (reference
 (P, Q, lm, ln) holds every shard; here each rank holds its own local shard
 (lm, ln) on an explicit device, with the ``Distribution`` and the
 :class:`~dlaf_tpu_torch.comm.mesh.Grid`. Every rank of the grid makes the
-same calls (``from_global``, ``to_global`` and ``diagonal`` are collective
-where the grid has more than one rank).
+same calls (``from_global``, ``to_global``, ``diagonal``, ``transpose``
+and ``symmetrize`` are collective where the grid has more than one rank).
 
-Not ported yet (ROADMAP): ``from_callback``, ``transpose``, ``symmetrize``,
-``retiled``, ``sub_matrix`` and ``set_sub_matrix``, which need all-to-all
-and point-to-point exchanges.
+Not ported yet (ROADMAP Queue 1 item 7, no algorithm calls them):
+``from_callback``, ``retiled``, ``sub_matrix`` and ``set_sub_matrix``.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -88,6 +88,66 @@ class DistMatrix:
         out[grow[rows]] = self.data[rows, lcol[rows]]
         return coll.allreduce_sum(out, None, self.grid)[: min(self.dist.size)]
 
+    def transpose(self, conj: bool = True) -> "DistMatrix":
+        """Distributed (conjugate) transpose as a new DistMatrix.
+
+        Square grid: rank (p, q) swaps its shard, transposed (and
+        conjugated), with rank (q, p) in one send/receive pair; diagonal
+        ranks transpose their own shard and post nothing. The new
+        distribution has the sizes and block sizes swapped and the source
+        rank transposed (JAX: an axis swap of the canonical layout).
+        Non-square grid: one uniform tile-slot all-to-all
+        (:func:`_transpose_a2a`), for src rank (0, 0) and square blocks.
+        """
+        P, Q = self.grid.grid_size
+        m, n = self.dist.size
+        if P == Q:
+            newdist = Distribution((n, m), self.dist.block_size[::-1], self.grid.grid_size,
+                                   self.src_rank_t())
+            p, q = self.grid.coords
+            if p == q:
+                data = self.data.mT.contiguous()
+            else:
+                peer = self.grid.rank_of(q, p)
+                data = coll.sendrecv(self.data.mT, peer, peer, tuple(self.data.shape[::-1]))
+            if conj and data.is_complex():
+                data.conj_physical_()
+            return DistMatrix(data, newdist, self.grid)
+        if self.dist.src_rank != (0, 0) or self.dist.block_size[0] != self.dist.block_size[1]:
+            raise ValueError("transpose on a non-square grid needs src_rank (0, 0) and square "
+                             f"blocks, got {self.dist.src_rank} and {self.dist.block_size}")
+        newdist = Distribution((n, m), self.dist.block_size[::-1], self.grid.grid_size)
+        data = _transpose_a2a(self.data, self.block_size, self.grid,
+                              newdist.max_local_nr_tiles, conj)
+        return DistMatrix(data, newdist, self.grid)
+
+    def symmetrize(self, lower: bool = True) -> "DistMatrix":
+        """The hermitian matrix of the stored triangle as a new DistMatrix:
+        A <- tril(A) + tril(A, -1)^H for ``lower`` (triu for upper): the
+        conjugate transpose (:meth:`transpose`), then a combine on global
+        indices, by row blocks of the shard."""
+        # the combine computes global indices for origin ownership
+        if self.dist.src_rank != (0, 0):
+            raise ValueError(f"symmetrize needs src_rank (0, 0), got {self.dist.src_rank}")
+        t = self.transpose(conj=True)
+        out = t.data
+        nb = self.block_size
+        P, Q = self.grid.grid_size
+        p, q = self.grid.coords
+        lm, ln = self.data.shape
+        grow = global_indices(lm // nb, nb, P, p, out.device)
+        gcol = global_indices(ln // nb, nb, Q, q, out.device)
+        for r0 in range(0, lm, _COMBINE_ROWS):
+            r1 = min(r0 + _COMBINE_ROWS, lm)
+            g = grow[r0:r1, None]
+            keep = g >= gcol[None, :] if lower else g <= gcol[None, :]
+            out[r0:r1] = torch.where(keep, self.data[r0:r1], out[r0:r1])
+        return DistMatrix(out, self.dist, self.grid)
+
+    def src_rank_t(self):
+        return (self.dist.src_rank[1] % self.grid.grid_size[0],
+                self.dist.src_rank[0] % self.grid.grid_size[1])
+
     @property
     def block_size(self) -> int:
         return self.dist.block_size[0]
@@ -95,3 +155,73 @@ class DistMatrix:
     @property
     def local_shape(self):
         return tuple(self.data.shape)
+
+
+# rows of the blocks symmetrize's combine works through (its boolean mask
+# and selects stay below 4096 x ln)
+_COMBINE_ROWS = 4096
+
+
+def _transpose_a2a(a: torch.Tensor, nb: int, grid: Grid, new_tiles, conj: bool) -> torch.Tensor:
+    """This rank's shard of A^T on a non-square (P, Q) grid, by JAX's
+    tile-slot exchange (``dlaf_tpu/matrix/dist_matrix.py:246-275``).
+
+    A's tile (i, j) lives on rank (i % P, j % Q); A^T's tile (j, i) lands
+    on rank (j % P, i % Q). With g = gcd(P, Q), the tiles a source sends
+    to one destination form one residue class mod lcm(P, Q) per dimension
+    (CRT), so every (source, destination) pair exchanges the same number
+    of tile slots: sr = ceil(lmt / (Q/g)) row tiles by sc = ceil(lnt /
+    (P/g)) column tiles, padded with zeros. One ``all_to_all_single`` of
+    equal slots does the exchange; the transient buffers are the local
+    shard times g^2. The slot arithmetic is on host integers (this
+    rank's coordinates are known), so the device work is two gathers.
+    """
+    P, Q = grid.grid_size
+    p, q = grid.coords
+    lm, ln = a.shape
+    lmt, lnt = lm // nb, ln // nb
+    lmt2, lnt2 = new_tiles
+    g = math.gcd(P, Q)
+    qg, pg = Q // g, P // g
+    inv_p = pow(P // g, -1, qg) if qg > 1 else 0
+    inv_q = pow(Q // g, -1, pg) if pg > 1 else 0
+    sr, sc = -(-lmt // qg), -(-lnt // pg)
+    dev = a.device
+
+    def t0_of(pq_src, dst, inv, period):     # first local tile sent to dst
+        return (((dst - pq_src) // g) * inv) % period
+
+    # ---- send: slot (r, c) to rank (p2, q2) holds my tile (t0 + r*qg, u0 + c*pg)
+    tiles = a.reshape(lmt, nb, lnt, nb)
+    ar_r, ar_c = torch.arange(sr, device=dev), torch.arange(sc, device=dev)
+    blocks = []
+    for r2 in range(P * Q):
+        p2, q2 = grid.coords_of(r2)
+        ts = t0_of(p, q2, inv_p, qg) + ar_r * qg
+        us = t0_of(q, p2, inv_q, pg) + ar_c * pg
+        blk = tiles.index_select(0, ts.clamp(max=lmt - 1)).index_select(2, us.clamp(max=lnt - 1))
+        valid = (ts < lmt)[:, None, None, None] & (us < lnt)[None, None, :, None]
+        blocks.append(torch.where(valid, blk, 0))
+    rcv = coll.all_to_all_slots(torch.stack(blocks), grid)      # (D, sr, nb, sc, nb)
+    del blocks
+    rtiles = rcv.permute(0, 1, 3, 2, 4).reshape(-1, nb, nb)
+
+    # ---- my A^T tile (t2, u2) = global (i2, j2) is A's tile (j2, i2), from
+    # rank (j2 % P, i2 % Q), at that source's slot for me
+    idx, ok = [], []
+    for t2 in range(lmt2):
+        i2 = t2 * P + p
+        for u2 in range(lnt2):
+            j2 = u2 * Q + q
+            p_s, q_s, t_s, u_s = j2 % P, i2 % Q, j2 // P, i2 // Q
+            r = (t_s - t0_of(p_s, q, inv_p, qg)) // qg
+            c = (u_s - t0_of(q_s, p, inv_q, pg)) // pg
+            good = t_s < lmt and u_s < lnt
+            ok.append(good)
+            idx.append((grid.rank_of(p_s, q_s) * sr + r) * sc + c if good else 0)
+    got = rtiles.index_select(0, torch.tensor(idx, device=dev))
+    got = torch.where(torch.tensor(ok, device=dev)[:, None, None], got, 0)
+    if conj and got.is_complex():
+        got = got.conj_physical()
+    # transpose each tile into the (lmt2 nb, lnt2 nb) local block
+    return got.reshape(lmt2, lnt2, nb, nb).permute(0, 3, 1, 2).reshape(lmt2 * nb, lnt2 * nb)

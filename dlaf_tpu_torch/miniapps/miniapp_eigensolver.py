@@ -34,11 +34,8 @@ def check_eigh(a: torch.Tensor, w: torch.Tensor, v: torch.Tensor, dtype):
 
 def main(argv=None):
     args = options.parser("miniapp_eigensolver").parse_args(argv)
-    if args.grid_rows * args.grid_cols > 1:
-        raise NotImplementedError(
-            "the distributed eigensolver is not ported yet (ROADMAP Queue 1 items 4-6: "
-            "DistMatrix.transpose, the distributed BLAS-3, then dist_red2band, "
-            "dist_stage23 and dist_driver)")
+    options.refuse_grid(args, "eigensolver",
+                        "dist_red2band, dist_stage23, tridiag_dc_dist and dist_driver")
     n = args.matrix_size
     dtype = options.dtype_of(args)
     device = options.device_of(args)

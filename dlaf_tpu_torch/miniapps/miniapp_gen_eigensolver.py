@@ -36,11 +36,8 @@ def check_eigh_gen(a: torch.Tensor, b: torch.Tensor, w: torch.Tensor, x: torch.T
 
 def main(argv=None):
     args = options.parser("miniapp_gen_eigensolver").parse_args(argv)
-    if args.grid_rows * args.grid_cols > 1:
-        raise NotImplementedError(
-            "the distributed generalized eigensolver is not ported yet (ROADMAP Queue 1 "
-            "items 4-6: DistMatrix.transpose, the distributed BLAS-3, then the "
-            "distributed eigensolver and eigh_gen_dist)")
+    options.refuse_grid(args, "generalized eigensolver",
+                        "the distributed eigensolver and eigh_gen_dist")
     n = args.matrix_size
     dtype = options.dtype_of(args)
     device = options.device_of(args)

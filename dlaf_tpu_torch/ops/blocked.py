@@ -9,6 +9,12 @@ into that buffer) and returns it. Block updates of the form
 C <- beta C + alpha op(A) op(B) are one ``addmm_`` into the view, so the
 plain route allocates no product.
 
+Each recursion is a nested ``rec`` that calls itself, so it refers to
+itself through its closure; it is deleted after the top-level call, so
+that the buffers it closes over are freed with their last reference and
+not at the next garbage collection (on the card, full-size buffers would
+otherwise outlive the call).
+
 The triangular recursions (POTRF, TRSM, TRMM) require dimensions to be
 multiples of the leaf size ``nb`` (the public API pads, see
 :mod:`dlaf_tpu_torch.api.local`); HERK and HER2K take any n. All are
@@ -66,6 +72,7 @@ def potrf_lower(a: torch.Tensor, nb: int, clean: bool = True) -> torch.Tensor:
         rec(o + s1, s - s1)
 
     rec(0, n)
+    del rec
     return a.tril_() if clean else a
 
 
@@ -85,6 +92,7 @@ def _trsm_right_lc_preinv(b, a, invd, o, s, nb):
         rec(oo + s1, ss - s1)
 
     rec(0, s)
+    del rec
     return b
 
 
@@ -114,6 +122,7 @@ def potrf_upper(a: torch.Tensor, nb: int, clean: bool = True) -> torch.Tensor:
         rec(o + s1, s - s1)
 
     rec(0, n)
+    del rec
     return a.triu_() if clean else a
 
 
@@ -133,6 +142,7 @@ def _trsm_left_uc_preinv(b, a, invd, o, s, nb):
         rec(oo + s1, ss - s1)
 
     rec(0, s)
+    del rec
     return b
 
 
@@ -177,6 +187,7 @@ def _trsm_left(b, a, lower, trans, unit, nb):
         rec(o, s1)
 
     rec(0, n)
+    del rec
     return b
 
 
@@ -207,6 +218,7 @@ def _trsm_right(b, a, lower, trans, unit, nb):
         rec(o, s1)
 
     rec(0, n)
+    del rec
     return b
 
 
@@ -263,6 +275,7 @@ def _trmm_left(b, a, lower, trans, unit, nb):
         rec(o + s1, s - s1)
 
     rec(0, n)
+    del rec
     return b
 
 
@@ -306,6 +319,7 @@ def _herk_inplace(c, o, s, a, *, lower, trans, alpha, beta, nb):
         cb.addmm_(op_mat(x, ta), op_mat(y, tb), beta=beta, alpha=alpha)
 
     rec(o, s)
+    del rec
 
 
 def herk(c, a, *, lower: bool, trans: str, alpha=1.0, beta=1.0, nb: int = 128):
@@ -352,6 +366,7 @@ def her2k(c, a, b, *, lower: bool, trans: str, alpha=1.0, beta=1.0, nb: int = 12
             two_into(c[o:o + s1, o + s1:o + s], o, s1, o + s1, s - s1, beta)
 
     rec(0, c.shape[0])
+    del rec
     return c
 
 

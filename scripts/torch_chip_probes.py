@@ -2,7 +2,7 @@
 
     python3 scripts/torch_chip_probes.py accumulation bf16_potrf profile dist_profile \
         stage4_profile k5_levers[=BASELINE.cu] k3_levers[=BASELINE.cu,...] stage2 k3_loads \
-        blas_profile
+        blas_profile dist_blas_profile
 
 - ``accumulation``: K2 (``csrc/ksub_tf32x3.cu``) as built, where each
   32-deep k step is summed on the tensor cores from zero and then added
@@ -85,6 +85,11 @@
   one ``eigh_gen`` at n = 8192 f32, band 128, nb = 512
   (``eigh_gen_main``): the device-busy total, the idle share and the
   largest device items; for ``eigh_gen`` also K1's and K3's device ms.
+- ``dist_blas_profile``: the same over the distributed
+  ``triangular_solver`` (L/L/N) and ``general_multiplication`` on a 1x1
+  grid at A 32768 x 32768, B 32768 x 16384 f32, nb = 512 (chip_smoke.py's
+  ``dist_blas_main``), each beside its local counterpart (``trsm``,
+  ``gemm``), with the GEMM kernels' total device ms and launches.
 
 Each probe prints JSON lines; the last line is the card's name and
 power limit as nvidia-smi gives them. Runs only where a CUDA device is.
@@ -703,11 +708,43 @@ def probe_blas_profile() -> None:
          k3_ms=sum(x[1] for x in k3) / 1e3, kernels=_top(rows, r["device_busy_ms"]))
 
 
+def probe_dist_blas_profile() -> None:
+    """``triangular_solver`` (L/L/N) and ``general_multiplication`` on a 1x1
+    grid at A 32768 x 32768, B 32768 x 16384, f32, nb = 512
+    (chip_smoke.py's ``dist_blas_main``), each beside its local counterpart
+    (``trsm``, ``gemm``), profiled: the device-busy total, the idle share,
+    the largest device items, and the GEMMs' share (every ``gemm`` kernel)."""
+    g = torch.Generator(device=DEV).manual_seed(30)
+    m, n, nb = 32768, 16384, 512
+    a = gen.random_triangular(g, m, torch.float32)
+    b = gen.random_general(g, (m, n), torch.float32)
+    one = dt.Grid((1, 1))
+    da = dt.DistMatrix.from_global(a, nb, one, pad_identity=True)
+    db = dt.DistMatrix.from_global(b, nb, one)
+
+    def profile(name, call):
+        r = _profiled(call)
+        rows = r.pop("rows")
+        gemm = [x for x in rows if "gemm" in x[0]]
+        emit("dist_blas_profile", call=name, m=m, n=n, nb=nb, grid=[1, 1], **r,
+             gemm_ms=sum(x[1] for x in gemm) / 1e3, gemm_launches=sum(x[2] for x in gemm),
+             kernels=_top(rows, r["device_busy_ms"]))
+
+    profile("triangular_solver", lambda: dt.triangular_solver(da, db))
+    profile("trsm", lambda: dt.trsm(a, b, nb=nb))
+    del da, a
+    torch.cuda.empty_cache()
+    a = gen.random_general(g, (m, m), torch.float32)
+    da = dt.DistMatrix.from_global(a, nb, one)
+    profile("general_multiplication", lambda: dt.general_multiplication(da, db))
+    profile("gemm", lambda: dt.gemm(a, b))
+
+
 PROBES = {"accumulation": probe_accumulation, "bf16_potrf": probe_bf16_potrf,
           "profile": probe_profile, "dist_profile": probe_dist_profile,
           "stage4_profile": probe_stage4_profile, "k5_levers": probe_k5_levers,
           "k3_levers": probe_k3_levers, "stage2": probe_stage2, "k3_loads": probe_k3_loads,
-          "blas_profile": probe_blas_profile}
+          "blas_profile": probe_blas_profile, "dist_blas_profile": probe_dist_blas_profile}
 
 
 if __name__ == "__main__":

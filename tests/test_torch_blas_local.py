@@ -313,3 +313,43 @@ def test_hermitian_from_tri_blocks(lower):
     a = torch.from_numpy(_general((4200, 4200), "complex64", 3))
     want = symmetrize_tri(a, lower)
     assert torch.equal(hermitian_from_tri_(a.clone(), lower), want)
+
+
+def _recursions():
+    """Each recursion of ops/blocked.py on a fresh working buffer: (name,
+    call that runs it and returns the buffer)."""
+    rng = np.random.default_rng(11)
+    n, nb = 96, 32
+    spd = torch.from_numpy(rng.standard_normal((n, n)))
+    spd = spd @ spd.T + n * torch.eye(n, dtype=spd.dtype)
+    tri = torch.tril(torch.from_numpy(rng.standard_normal((n, n)))) / n + 2 * torch.eye(n)
+    b = torch.from_numpy(rng.standard_normal((n, 40)))
+    kw = dict(lower=True, trans="N", unit=False, nb=nb)
+    return {
+        "potrf_lower": lambda: blocked.potrf_lower(spd.clone(), nb),
+        "potrf_upper": lambda: blocked.potrf_upper(spd.clone(), nb),
+        "trsm_left": lambda: blocked.trsm(b.clone(), tri, side="L", **kw),
+        "trsm_right": lambda: blocked.trsm(b.T.clone(), tri, side="R", **kw),
+        "trmm_left": lambda: blocked.trmm(b.clone(), tri, side="L", **kw),
+        "herk": lambda: blocked.herk(spd.clone(), b, lower=True, trans="N", nb=nb),
+        "her2k": lambda: blocked.her2k(spd.clone(), b, b, lower=True, trans="N", nb=nb),
+    }
+
+
+@pytest.mark.parametrize("name", list(_recursions()))
+def test_blocked_recursion_frees_its_buffers(name):
+    """A blocked recursion leaves no reference cycle behind: its working
+    buffer is freed as soon as the caller drops it, with the cyclic
+    garbage collector off (a full-size buffer on the card must not wait
+    for the next collection)."""
+    import gc
+    import weakref
+
+    call = _recursions()[name]
+    gc.collect()
+    gc.disable()
+    try:
+        ref = weakref.ref(call())
+        assert ref() is None, f"{name}: its buffer outlives the call"
+    finally:
+        gc.enable()

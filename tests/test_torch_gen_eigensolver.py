@@ -2,7 +2,9 @@
 numpy matrices: dlaf_tpu_torch.hegst against
 dlaf_tpu.algos.gen_to_std.generalized_to_standard (uplo L and U), and
 dlaf_tpu_torch.eigh_gen against dlaf_tpu.eigh_gen (factorized or not,
-uplo L and U); then the four new miniapps on the CPU with --check.
+uplo L and U); then the four new miniapps on the CPU with --check, and
+the distributed branches of the triangular solver, triangular
+multiplication and gen_to_std miniapps on a 2x2 grid of spawned gloo ranks.
 
 Both packages get the small-band parameters of tests/test_eigensolver.py
 (eigensolver_min_band=8, default_block_size=16). hegst is held to
@@ -161,11 +163,56 @@ def test_miniapps_cpu_check(name, uplo, typ, capsys):
     assert row[4:6] == [typ, uplo] and row[8:] == ["1", "1", "1", "cpu"]
 
 
+DISTRIBUTED = ("triangular_solver", "triangular_multiplication", "gen_to_std")
+
+
 @pytest.mark.parametrize("name", list(MINIAPPS))
 def test_miniapps_grid_not_ported(name):
+    """A grid larger than 1x1: the miniapps with a distributed branch refuse
+    to run it outside torchrun (no process group, world size 1), naming
+    the command; the generalized eigensolver's branch is not ported."""
     mod, argv = MINIAPPS[name]
+    if name in DISTRIBUTED:
+        with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
+            mod.main(argv + ["--grid-rows", "2", "--device", "cpu"])
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         mod.main(argv + ["--grid-rows", "2", "--device", "cpu"])
+
+
+DIST_RUNS = [(name, uplo) for name in DISTRIBUTED for uplo in "LU"]
+
+
+@pytest.fixture(scope="module")
+def distributed_runs():
+    """The three distributed branches, uplo L and U, with --check on one 2x2
+    grid of spawned gloo ranks (in f64, n ragged against nb); what each
+    rank printed, per run."""
+    import functools
+
+    import torch_dist_ranks as ranks
+    from dlaf_tpu_torch.comm.launch import spawn_grid
+
+    runs = [(name, MINIAPPS[name][1][:2] + ["-b", "16", "--grid-rows", "2", "--grid-cols", "2",
+                                            "--uplo", uplo, "--type", "d", "--check",
+                                            "--nruns", "1", "--nwarmups", "0", "--device",
+                                            "cpu", "--comm-backend", "gloo"]
+             + MINIAPPS[name][1][4:])
+            for name, uplo in DIST_RUNS]
+    outs = spawn_grid(functools.partial(ranks.miniapps, runs), (2, 2), backend="gloo",
+                      device="cpu", timeout=300)
+    return {run: [o[i] for o in outs] for i, run in enumerate(DIST_RUNS)}
+
+
+@pytest.mark.parametrize("name,uplo", DIST_RUNS, ids=[f"{n}-{u}" for n, u in DIST_RUNS])
+def test_miniapps_distributed(distributed_runs, name, uplo):
+    """The distributed branch on a 2x2 grid: rank 0 prints the run and
+    --check passes; the other ranks print nothing."""
+    outs = distributed_runs[(name, uplo)]
+    assert "check: PASSED" in outs[0], outs[0]
+    n = MINIAPPS[name][1][1]
+    assert _csv(outs[0])[4:] == ["d", uplo, n, "16", "2", "2", "1", "cpu"]
+    assert outs[1:] == ["", "", ""]
 
 
 def test_triangular_solver_check_rejects_planted_fault(monkeypatch, capsys):

@@ -13,10 +13,17 @@ import torch
 
 import dlaf_tpu_torch as dt
 from dlaf_tpu_torch.algos import cholesky as chol
+from dlaf_tpu_torch.comm import collectives as coll
 from dlaf_tpu_torch.comm import panel
 from dlaf_tpu_torch.comm.mesh import COL_AXIS, ROW_AXIS
 from dlaf_tpu_torch.matrix.dist_matrix import DistMatrix
-from dlaf_tpu_torch.miniapps import miniapp_cholesky
+from dlaf_tpu_torch.miniapps import (miniapp_cholesky, miniapp_gen_to_std,
+                                     miniapp_triangular_multiplication,
+                                     miniapp_triangular_solver)
+
+MINIAPPS = {"cholesky": miniapp_cholesky, "triangular_solver": miniapp_triangular_solver,
+            "triangular_multiplication": miniapp_triangular_multiplication,
+            "gen_to_std": miniapp_gen_to_std}
 
 
 def cholesky_cases(cases, grid, device):
@@ -76,12 +83,84 @@ def dist_matrix_cases(cases, grid, device):
     return out
 
 
-def miniapp(argv, grid, device):
-    """The Cholesky miniapp on this rank; returns what it printed."""
+def miniapp(argv, grid, device, name="cholesky"):
+    """The miniapp ``name`` (default the Cholesky one) on this rank;
+    returns what it printed."""
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        miniapp_cholesky.main(argv)
+        MINIAPPS[name].main(argv)
     return buf.getvalue()
+
+
+def miniapps(runs, grid, device):
+    """Each ``(name, argv)`` miniapp in turn on this rank; returns what each
+    printed."""
+    return [miniapp(argv, grid, device, name) for name, argv in runs]
+
+
+def _blas_case(kind, arrays, kw, grid, device):
+    """One case of :func:`dist_blas_cases`: the gathered result, or for
+    ``ring`` this rank's received value."""
+    nb = kw.get("nb")
+
+    def dm(x, pad=False):
+        return DistMatrix.from_global(torch.from_numpy(x), nb, grid, pad_identity=pad,
+                                      device=device)
+
+    if kind == "transpose":
+        t = dm(arrays[0]).transpose(conj=kw["conj"])
+        return t.to_global().numpy(), t.dist.size, t.dist.block_size, t.local_shape
+    if kind == "symmetrize":
+        return dm(arrays[0]).symmetrize(lower=kw["lower"]).to_global().numpy()
+    if kind == "ring":
+        p, q = grid.coords
+        x = torch.tensor([float(p * grid.grid_size[1] + q)], device=device)
+        return float(coll.ring_shift(x, kw["axis"], grid, kw["shift"])[0])
+    if kind == "trsm":
+        a, b = arrays
+        return dt.triangular_solver(dm(a, True), dm(b), side=kw["side"], uplo=kw["uplo"],
+                                    trans=kw["trans"], diag=kw["diag"],
+                                    alpha=kw["alpha"]).to_global().numpy()
+    if kind == "gemm":
+        a, b, c = arrays
+        return dt.general_multiplication(dm(a), dm(b), dm(c), alpha=kw["alpha"],
+                                         beta=kw["beta"]).to_global().numpy()
+    if kind == "hemm":
+        a, b = arrays
+        return dt.hermitian_multiplication(dm(a), dm(b), uplo=kw["uplo"],
+                                           alpha=kw["alpha"]).to_global().numpy()
+    if kind == "trmm":
+        a, b = arrays
+        return dt.triangular_multiplication(dm(a), dm(b), side=kw["side"], uplo=kw["uplo"],
+                                            diag=kw["diag"],
+                                            alpha=kw["alpha"]).to_global().numpy()
+    if kind == "gen_to_std":
+        a, l = arrays
+        return dt.generalized_to_standard_dist(dm(a), dm(l, True),
+                                               uplo=kw["uplo"]).to_global().numpy()
+    if kind == "norm":
+        return float(dt.max_norm(dm(arrays[0]), uplo=kw["uplo"]))
+    if kind == "permute":
+        return dt.permute(dm(arrays[0]), arrays[1], axis=kw["axis"]).to_global().numpy()
+    if kind == "multichip":
+        a, b = arrays
+        da, db = dm(a, True), dm(b)
+        f = dt.cholesky(da)
+        x = dt.triangular_solver(f, db, uplo="L", trans="N")
+        c = dt.general_multiplication(da, db)
+        return f.to_global().numpy(), x.to_global().numpy(), c.to_global().numpy()
+    raise ValueError(f"unknown case kind {kind!r}")
+
+
+def dist_blas_cases(cases, grid, device):
+    """Each ``(key, kind, arrays, kw)`` on the grid: {key: result} on rank 0
+    (None elsewhere), but ``ring`` cases on every rank, whose result is
+    what that rank received."""
+    out = {}
+    for key, kind, arrays, kw in cases:
+        res = _blas_case(kind, arrays, kw, grid, device)
+        out[key] = res if grid.rank == 0 or kind == "ring" else None
+    return out
 
 
 def spd(n, seed, dtype=np.float64):
