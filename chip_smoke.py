@@ -93,7 +93,8 @@ once), ``general``, ``hermitian`` and ``triangular_multiplication`` at A
 32768 x 32768, B 32768 x 16384 and ``generalized_to_standard_dist`` at
 n = 32768 on a 1x1 grid, each timed beside its local counterpart and held
 to f64 beside a planted fault (a skipped diagonal-tile solve or k panel;
-a transpose missing its conjugate on a complex64 case), ``max_norm`` and
+a transpose missing its conjugate on a complex64 case) and beside its
+products in TF32, ``max_norm`` and
 ``permute`` bit-equal to the local ones; and four gloo ranks on the card
 (2x2 at n = 8192, 1x4 at n = 4096) against the 1x1 grid's results,
 ``ring_shift``, and the three distributed miniapps with ``--check``.
@@ -334,6 +335,12 @@ N_GRID, GRID_SEED, GRID_BAD = 8192, 6, 2500
 N_BLAS, NRHS_BLAS, N_HERK = 32768, 16384, 16384
 BLAS_SWEEP = (2048, 1024)
 BLAS_BOUND = 1.0
+# the distributed BLAS-3's f32 calls are also held to TF32_GATE in the same
+# units, which separates f32 products from one-pass TF32 ones (TF32 stays
+# off; BLAS_BOUND does not): on an H100 the f32 calls read 4.5e-4 at most,
+# and with TF32 products gemm and hemm 0.071, trmm 0.12, gen_to_std 0.22
+# and trsm 0.25
+TF32_GATE = 0.01
 MINIAPP_BLAS_BOUND, MINIAPP_HEGST_BOUND = 500.0, 1000.0
 HEGST_SLICE = 4096
 # eigh_gen at eigh_main's configuration: residual in units of n eps32
@@ -2631,9 +2638,10 @@ def phase_stage_miniapps() -> None:
                       "k1_launches": counts["potrf_tile"], "k2_launches": counts["ksub_matmul"]}
     require(kr["potrf"]["k1_launches"] == 3 * STAGE_COUNT and kr["ksub"]["k2_launches"] == 3,
             f"kernel_runner launches: {kr}")
-    _launch_path("potrf_tile", f"kernel_runner potrf x{STAGE_COUNT} (a run)", STAGE_COUNT)
-    _launch_path("ksub_matmul", "kernel_runner ksub (a run)", 1)
     checks = _kernel_runner_checks()
+    _launch_path("potrf_tile", f"kernel_runner potrf x{STAGE_COUNT} (a run)",
+                 checks["potrf"]["k1_launches"])
+    _launch_path("ksub_matmul", "kernel_runner ksub (a run)", checks["ksub"]["k2_launches"])
     emit("stage_miniapps", n=N_EIGH, band=B_EIGH, dtype="float32", miniapps=runs,
          kernel_runner={"nb": NB_MAIN, "count": STAGE_COUNT, **kr}, kernel_checks=checks)
 
@@ -2693,11 +2701,23 @@ def _product_reading(a, b, y) -> float:
     return err / (a.shape[0] * EPS32 * ymax)
 
 
+@contextlib.contextmanager
+def _tf32_products():
+    """Control: f32 products in one TF32 pass (cuBLAS's tensor-core route),
+    which the port keeps off."""
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
 def _dist_and_local(name, dist_fn, local_fn, reading, planted_ctx, extra=None) -> dict:
     """A distributed call and its local counterpart, each a warm-up and two
     timed runs (in turns); the distributed result's reading, the local's,
-    and the reading of the distributed call under a planted fault. Only
-    the first timed result of each is kept."""
+    and the readings of the distributed call under a planted fault and
+    with its f32 products in TF32. Only the first timed result of each is
+    kept."""
     dist_fn()
     local_fn()
     secs = {"dist": [], "local": []}
@@ -2714,8 +2734,13 @@ def _dist_and_local(name, dist_fn, local_fn, reading, planted_ctx, extra=None) -
     with planted_ctx():
         res["planted_reading"] = reading(dist_fn())
     torch.cuda.empty_cache()
+    with _tf32_products():
+        res["tf32_reading"] = reading(dist_fn())
+    torch.cuda.empty_cache()
     require(res["reading"] <= BLAS_BOUND < res["planted_reading"],
             f"dist {name}: reading {res['reading']}, planted {res['planted_reading']}")
+    require(res["reading"] <= TF32_GATE < res["tf32_reading"],
+            f"dist {name}: reading {res['reading']}, with TF32 products {res['tf32_reading']}")
     if extra:
         res.update(extra)
     return res
@@ -2737,7 +2762,8 @@ def _conj_case() -> dict:
 
     def no_conj(real):
         def f(*args, **kw):
-            return real(*args, **kw).conj()
+            p = real(*args, **kw)
+            return p.conj() if kw["trans"] == "C" else p
         return f
 
     def hemm_reading(y):
@@ -2763,7 +2789,7 @@ def _conj_case() -> dict:
 
     out = {"n": n, "dtype": "complex64", "hemm": {"reading": hemm_reading(hemm())},
            "gen_to_std": {"reading": g2s_reading(g2s())}}
-    with _patched(general, "_row_panel_as_col", no_conj):
+    with _patched(general, "_op_panel", no_conj):
         out["hemm"]["planted_reading"] = hemm_reading(hemm())
     with _patched(dt.DistMatrix, "transpose", transpose_no_conj):
         out["gen_to_std"]["planted_reading"] = g2s_reading(g2s())
@@ -2783,7 +2809,8 @@ def phase_dist_blas_main() -> None:
     through K1), each timed beside its local counterpart (trsm, gemm,
     hemm, trmm, hegst) in the same call and held to f64 in blas_main's
     units beside a planted fault (a skipped diagonal-tile solve or k
-    panel); ``max_norm`` G and ``permute`` of rows bit-equal to the local
+    panel) and, at TF32_GATE, beside its f32 products in TF32;
+    ``max_norm`` G and ``permute`` of rows bit-equal to the local
     functions (beside a moved entry and two swapped indices); and the
     complex64 case at n = 2048 beside a transpose missing its conjugate.
     The device memory still allocated when it starts is recorded, before
@@ -2816,7 +2843,7 @@ def phase_dist_blas_main() -> None:
     del x, dbt
     out["triangular_solver_right"] = {"seconds": t_r, "local_seconds": t_l,
                                       "reading": reading_r}
-    require(reading_r <= BLAS_BOUND, f"dist trsm R: {out['triangular_solver_right']}")
+    require(reading_r <= TF32_GATE, f"dist trsm R: {out['triangular_solver_right']}")
     out["triangular_multiplication"] = _dist_and_local(
         "triangular_multiplication", lambda: dt.triangular_multiplication(da, db, uplo="L").data,
         lambda: dt.trmm(a, b, uplo="L", nb=NB_MAIN), lambda y: _product_reading(a, b, y),
@@ -2884,7 +2911,7 @@ def phase_dist_blas_main() -> None:
     del a, l, da, dl
     torch.cuda.empty_cache()
     out["complex64_conj"] = _conj_case()
-    emit("dist_blas_main", bound=BLAS_BOUND, seconds=time.perf_counter() - t0,
+    emit("dist_blas_main", bound=BLAS_BOUND, tf32_gate=TF32_GATE, seconds=time.perf_counter() - t0,
          units={"triangular_solver": "max|op(A)X - B| / (m eps32 max|B|)",
                 "multiplications": "max|Y - Y64| / (m eps32 max|Y64|)",
                 "generalized_to_standard_dist": "max|R - R64| / (n eps32 max|R64|) on "

@@ -21,22 +21,12 @@ from __future__ import annotations
 
 import torch
 
-from ..comm import collectives as coll
 from ..comm import panel
-from ..comm.mesh import COL_AXIS, ROW_AXIS, Grid
+from ..comm.mesh import Grid
 from ..dist import Distribution
 from ..matrix.dist_matrix import DistMatrix
 from ..ops.core import symmetrize_tri, take_tri
-from .triangular import _first_local_tile
-
-
-def _col_panel(a, kt: int, nb: int, grid: Grid, t0: int = 0, t1: int | None = None):
-    """A(i, kt) for this rank's local row tiles [t0, t1) (default all) ->
-    (rows, nb), broadcast from the owning grid column."""
-    Q = grid.grid_size[1]
-    lc = (kt // Q) * nb
-    rows = slice(t0 * nb, None if t1 is None else t1 * nb)
-    return coll.bcast(a[rows, lc:lc + nb], kt % Q, COL_AXIS, grid)
+from .triangular import _first_local_tile, _op_panel
 
 
 def _row_panel(b, kt: int, nb: int, grid: Grid):
@@ -46,20 +36,6 @@ def _row_panel(b, kt: int, nb: int, grid: Grid):
                                 grid)
 
 
-def _row_panel_as_col(a, kt: int, nb: int, t0: int, t1: int, grid: Grid):
-    """conj(A(kt, gi))^T for this rank's local row tiles [t0, t1), as a
-    ((t1 - t0) nb, nb) panel: A's row kt broadcast down the grid column,
-    gathered over the grid row, re-indexed by global tile (an all_gather a
-    step: only the hermitian modes pay it)."""
-    P = grid.grid_size[0]
-    row = _row_panel(a, kt, nb, grid)
-    ids = torch.arange(t0, t1, device=a.device) * P + grid.coords[0]
-    tiles = panel.take_tiles(panel.all_tiles(row, COL_AXIS, nb, grid), ids)
-    if tiles.is_complex():
-        tiles = tiles.conj()
-    return tiles.transpose(1, 2).reshape(-1, nb)
-
-
 def _a_panel(a, kt: int, nb: int, grid: Grid, a_mode: str):
     """The k panel of A for this rank's rows: (panel, t0), the panel's
     rows being the local row tiles from t0 on, or None where this grid row
@@ -67,12 +43,12 @@ def _a_panel(a, kt: int, nb: int, grid: Grid, a_mode: str):
     with that triangle stored; 'tril'/'triu' (+ '_unit') A triangular,
     whose panel holds only the rows on the stored side of the diagonal
     (JAX masks the others to zero and multiplies them too)."""
+    lmt = a.shape[0] // nb
     if a_mode == "full":
-        return _col_panel(a, kt, nb, grid), 0
+        return _op_panel(a, kt, 0, lmt, nb=nb, trans="N", grid=grid), 0
     P = grid.grid_size[0]
     p = grid.coords[0]
     lower = a_mode in ("herm_L", "tril", "tril_unit")
-    lmt = a.shape[0] // nb
     # local row tiles [0, td) hold global tiles < kt, [td, tg) the diagonal
     # tile kt if this grid row owns it, [tg, lmt) the tiles > kt
     td = _first_local_tile(kt, P, p)
@@ -81,19 +57,20 @@ def _a_panel(a, kt: int, nb: int, grid: Grid, a_mode: str):
         t0, t1 = (td, lmt) if lower else (0, tg)
         if t0 >= t1:
             return None
-        ap = _col_panel(a, kt, nb, grid, t0, t1)
+        ap = _op_panel(a, kt, t0, t1, nb=nb, trans="N", grid=grid)
         if tg > td:
             d = slice((td - t0) * nb, (tg - t0) * nb)
             ap = ap.clone()
             ap[d] = take_tri(ap[d], lower, a_mode.endswith("unit"))
         return ap, t0
-    colp = _col_panel(a, kt, nb, grid)
+    colp = _op_panel(a, kt, 0, lmt, nb=nb, trans="N", grid=grid)
     ap = torch.zeros_like(colp)
     stored = slice(tg * nb, None) if lower else slice(0, td * nb)
     ap[stored] = colp[stored]
     # the other side of the diagonal from the conjugate-transposed row
+    # (an all_gather a step: only the hermitian modes pay it)
     o0, o1 = (0, td) if lower else (tg, lmt)
-    ap[o0 * nb:o1 * nb] = _row_panel_as_col(a, kt, nb, o0, o1, grid)
+    ap[o0 * nb:o1 * nb] = _op_panel(a, kt, o0, o1, nb=nb, trans="C", grid=grid)
     if tg > td:
         ap[td * nb:tg * nb] = symmetrize_tri(colp[td * nb:tg * nb], lower)
     return ap, 0
