@@ -99,6 +99,24 @@ products in TF32, ``max_norm`` and
 (2x2 at n = 8192, 1x4 at n = 4096) against the 1x1 grid's results,
 ``ring_shift``, and the three distributed miniapps with ``--check``.
 
+The distributed eigensolver: ``eigh_dist`` on a 1x1 grid at ``eigh``'s
+configuration (n = 8192 f32, nb = 512, band 128) in turns with ``eigh``,
+K3 counted on its replicated stage 2, timed by stage (the staged run
+bit-equal to the entry point's eigenvalues), its orthogonality, residual
+and eigenvalue gates each beside a planted fault (one stage-4 reflector
+group skipped, one stage-1 reflector not unitary, one subdiagonal entry
+lost), the device's idle share of one call under ``torch.profiler``;
+``eigvalsh_dist``; ``eigh_gen_dist`` in turns with ``eigh_gen`` beside a
+perturbed factor of B; complex64 ``eigh_dist`` at n = 4096 (K3's streamed
+instance); then four gloo ranks on the card: ``eigh_dist`` on 2x2 and 1x4
+grids in the replicated stage 2 (K3 once on every rank, d and e equal on
+every rank) and the pipelined one, ``eigh_gen_dist`` on 2x2, each against
+the 1x1 grid's result, and the seven eigensolver miniapps' distributed
+branches with ``--check``. K3's sweep-chunked cases include the last
+rank's chunk of four, whose sweeps past the end must read tau = 0, and
+``potrf_info`` also meets a NaN entry, the kernel route's info recorded
+beside the plain route's.
+
 Every phase prints one JSON line. Any failed check raises, so the exit code
 is not 0; nothing catches it. The last lines are the card's
 ``nvidia-smi`` name and power limit, one JSON line with the kernels, and
@@ -134,6 +152,10 @@ from dlaf_tpu_torch.algos.eigensolver.driver import _phase_normalize  # noqa: E4
 from dlaf_tpu_torch.algos.eigensolver.red2band import (  # noqa: E402
     extract_band, reduction_to_band)
 from dlaf_tpu_torch.algos.eigensolver import large  # noqa: E402
+from dlaf_tpu_torch.algos.eigensolver import dist_driver as ddrv  # noqa: E402
+from dlaf_tpu_torch.algos.eigensolver import dist_red2band  # noqa: E402
+from dlaf_tpu_torch.algos.eigensolver import dist_stage23 as s23  # noqa: E402
+from dlaf_tpu_torch.algos.eigensolver.tridiag_dc_dist import tridiag_eigh_dist  # noqa: E402
 from dlaf_tpu_torch.algos.eigensolver import red2band as r2b  # noqa: E402
 from dlaf_tpu_torch.algos.eigensolver.tridiag_dc import tridiag_eigh  # noqa: E402
 from dlaf_tpu_torch.comm.launch import spawn_grid  # noqa: E402
@@ -210,7 +232,9 @@ PEAK_BYTES = 3.35e12
 PEAK_TF32 = 495e12
 # K3 cases on random bands: (n, b, dtype, sweep_lo, sweep_chunk); the main
 # path's band width, a narrow band, b > 128, a ragged n, a sweep-chunked
-# record, and complex64 at b = 64, so that each instance of the kernel
+# record, the last rank's chunk of eigh_dist's replicated stage 2 on four
+# ranks (1022 sweeps in chunks of 256: its last two sweeps lie past the
+# end and must read tau = 0), and complex64 at b = 64, so that each instance of the kernel
 # (resident: the window in shared memory; streamed: in L2) meets each
 # dtype. Then K3 on the main path's own inputs (the bands
 # stage 1 hands it in eigh_main and eigh_c64, K3_MAIN), and on a narrow band
@@ -219,7 +243,7 @@ PEAK_TF32 = 495e12
 K3_CASES = [(1024, 128, torch.float32, 0, None), (1024, 128, torch.complex64, 0, None),
             (300, 16, torch.float32, 0, None), (200, 160, torch.float32, 0, None),
             (777, 32, torch.float32, 0, None), (1024, 128, torch.float32, 200, 128),
-            (512, 64, torch.complex64, 0, None)]
+            (1024, 128, torch.float32, 768, 256), (512, 64, torch.complex64, 0, None)]
 K3_MULTI_B = 8
 K3_PLAIN_TIMED = (1024, 128)    # the sequential plain version is timed where it is affordable
 K3_PLANTED = (300, 16)          # the small case a planted fault is shown on
@@ -356,7 +380,36 @@ STAGE_COUNT = 64
 N_GRID_LINE, GRID_BLAS_SEED, GRID_BLAS_BOUND = 4096, 7, 0.05
 GRID_MINIAPP = ["-n", "4096", "-b", "512", "--grid-rows", "2", "--grid-cols", "2",
                 "--comm-backend", "gloo", "--check", "--nruns", "1", "--nwarmups", "0"]
-
+# the distributed eigensolver on four gloo ranks sharing the card: eigh_dist
+# (f32, nb = 512, band 128) on 2x2 and 1x4 grids of the same ranks, each
+# (grid, n, stage-2 mode) below, eigh_gen_dist on 2x2 at N_GEN_GRID, the
+# inputs' seed, and the seven eigensolver miniapps' distributed branches.
+# The pipelined stage 2 runs at n = 1024: each of its ~3n wavefront steps
+# is up to two send/receives staged through the host between processes
+# that time-slice the card (on an H100, eigh_dist at n = 1024 took 14-22 s
+# a rank with it on 2x2, 9-11 s replicated at n = 4096).
+EIG_GRID_CASES = [((2, 2), 4096, "replicated"), ((2, 2), 1024, "pipelined"),
+                  ((1, 4), 2048, "replicated"), ((1, 4), 1024, "pipelined")]
+N_GEN_GRID, EIG_GRID_SEED = 2048, 41
+# the grid's gates, in eigh's units (orth in n eps32; res, eig in n eps32
+# max|A|): the distributed merge of the D&C keeps orthogonality less well
+# than the local one, in JAX's as in the port's (on an H100 the replicated
+# 2x2 n = 4096 and 1x4 n = 2048 runs read orth 4.6 and 5.9), so these are
+# wider than EIGH_BOUNDS, as is eig, whose
+# n eps32 unit shrinks with n (a sound 1x4 n = 1024 run read 12.1); the
+# eigenvalues are also held to the 1x1 grid's within 1 n eps32 max|w|
+GRID_EIGH_BOUNDS = {"orth": 50.0, "res": 20.0, "eig": 50.0}
+GRID_GEN_BOUNDS = {"res": 20.0, "borth": 50.0}
+EIG_GRID_COMMON = ["--grid-rows", "2", "--grid-cols", "2", "--comm-backend", "gloo", "--check",
+                   "--nruns", "1", "--nwarmups", "0"]
+EIG_GRID_MINIAPPS = [
+    ("eigensolver", miniapp_eigensolver, ["-n", "512", "-b", "128"]),
+    ("gen_eigensolver", miniapp_gen_eigensolver, ["-n", "512", "-b", "128"]),
+    ("reduction_to_band", miniapp_reduction_to_band, ["-n", "512", "--band-size", "128"]),
+    ("band_to_tridiag", miniapp_band_to_tridiag, ["-n", "512", "--band-size", "128"]),
+    ("tridiag_solver", miniapp_tridiag_solver, ["-n", "512"]),
+    ("bt_band_to_tridiag", miniapp_bt_band_to_tridiag, ["-n", "512", "--band-size", "128"]),
+    ("bt_reduction_to_band", miniapp_bt_reduction_to_band, ["-n", "512", "--band-size", "128"])]
 
 def emit(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, **kw}), flush=True)
@@ -850,14 +903,20 @@ def _phase_k3() -> None:
         strips, band64, amax = _k3_band(g, n, b, dtype)
         what = f"K3 n={n} b={b} {dtype} sweep_lo={lo} chunk={chunk}"
         if chunk is not None:
-            # the chunked record is rows [lo, lo + chunk) of the full one
+            # the chunked record is rows [lo, lo + chunk) of the full one;
+            # rows past the last sweep (n - 2) are zero, no-ops of tau = 0
             got = band_to_tridiag_strips_kernel(strips, n, b, lo, chunk)
             ref = band_to_tridiag_strips_kernel(strips, n, b)
+            k = max(0, min(chunk, n - 2 - lo))
             same = torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]) and \
-                torch.equal(got[2], ref[2][lo:lo + chunk]) and torch.equal(got[3], ref[3][lo:lo + chunk])
-            require(same, f"{what}: rows of the full record")
+                torch.equal(got[2][:k], ref[2][lo:lo + k]) and \
+                torch.equal(got[3][:k], ref[3][lo:lo + k])
+            past = not got[2][k:].any() and not got[3][k:].any()
+            require(same and past, f"{what}: rows of the full record ({same}), zero past the "
+                    f"last sweep ({past})")
             emit("k3_chunk", n=n, b=b, dtype=str(dtype).replace("torch.", ""), sweep_lo=lo,
-                 sweep_chunk=chunk, equal_to_full_record_rows=same)
+                 sweep_chunk=chunk, equal_to_full_record_rows=same, sweeps_past_end=chunk - k,
+                 zero_past_end=past)
             continue
         plant = None
         if (n, b, dtype) == (*K3_PLANTED, torch.float32):
@@ -1693,7 +1752,30 @@ def phase_info() -> None:
         require(tile * nb < got[uplo] <= (tile + 1) * nb,
                 f"potrf_info {uplo}: info {got[uplo]} outside the failing tile")
     require(int(info_ok) == 0, "potrf_info on an SPD matrix")
-    emit("potrf_info", n=n, nb=nb, bad_index=bad, info=got, info_spd=int(info_ok))
+    # a NaN pair off the diagonal inside leaf tile 4: the JAX package
+    # reports the first non-finite pivot, row nan_at[0] + 1 (its leaf's NaN
+    # flows forward); K1 propagates NaN forward too, and the plain route's
+    # leaf (potrf_tile_ref) NaNs the columns from cholesky_ex's failing
+    # pivot on. Each route's info, which must lie in the failing tile.
+    nan_at = (bad + 7, bad - 3)
+    a = gen.random_hermitian_positive_definite(
+        torch.Generator(device=DEV).manual_seed(5), n, torch.float32)
+    a[nan_at] = a[nan_at[::-1]] = float("nan")
+    nan_info = {}
+    for route in ("kernel", "torch"):
+        _set_route(route)
+        try:
+            nan_info[route] = {u: int(dt.potrf_info(a, uplo=u, nb=nb)[1]) for u in "UL"}
+        finally:
+            _set_route("kernel")
+    tile = nan_at[0] // nb
+    for route, infos in nan_info.items():
+        for u, info in infos.items():
+            require(tile * nb < info <= (tile + 1) * nb,
+                    f"potrf_info {route} {u} on a NaN entry: info {info} outside the failing tile")
+    emit("potrf_info", n=n, nb=nb, bad_index=bad, info=got, info_spd=int(info_ok),
+         nan_entry=list(nan_at), nan_info=nan_info, nan_first_nonfinite_pivot=nan_at[0] + 1,
+         nan_info_kernel_equals_plain=nan_info["kernel"] == nan_info["torch"])
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
@@ -3060,10 +3142,374 @@ def phase_dist_blas_grid() -> None:
          miniapps={k: v["out"].strip().splitlines() for k, v in r0["miniapps"].items()})
 
 
+# ---------------------------------------------------------------------------
+# The distributed eigensolver: eigh_dist, eigvalsh_dist and eigh_gen_dist on
+# a 1x1 grid at eigh_main's configuration, and on grids of four gloo ranks
+# sharing the card
+
+
+def _dist_eigh_stages(dm):
+    """dt.eigh_dist's stages (dist_driver.eigh_dist, as it runs them), with
+    a synchronization after each: (w, v's shard, seconds per stage, the
+    stage outputs the planted faults start from). phase_dist_eigh_main
+    holds its w bit-equal to the entry point's."""
+    tune = dt.get_tune_parameters()
+    grid, n = dm.grid, dm.dist.size[0]
+    secs, out = {}, {}
+
+    def lap(name, t0):
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        return time.perf_counter()
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    a_sq = ddrv._square_lattice(dm)
+    pm = a_sq.dist.padded_size[0]
+    band = dt.get_band_size(a_sq.block_size)
+    out.update(pm=pm, band=band, grid=grid, n=n, dist=dm.dist, nb=a_sq.block_size)
+    out["packed"], out["taus1"] = dist_red2band.reduction_to_band_dist(
+        ddrv._pad_fixed(a_sq, n), band)
+    t = lap("stage1_red2band", t)
+    strips = s23.strips_from_packed_dist(out["packed"], band)
+    t = lap("band_to_strips", t)
+    d, e, out["vs"], out["taus2"] = s23.band_to_tridiag_dist(strips, pm, band, grid)
+    del strips
+    t = lap("stage2_band2tridiag", t)
+    out["d"], (out["e"], out["phases"]) = d, _phase_normalize(e, dm.data.dtype)
+    w, out["q3"], out["m"] = tridiag_eigh_dist(d, out["e"], grid, tune.laed4_max_iter,
+                                                 col_align=out["nb"])
+    t = lap("stage3_tridiag_dc", t)
+    out["q4"] = _dist_stage4(out, out["taus2"])
+    t = lap("stage4_bt_band_to_tridiag", t)
+    v = _dist_stage5(out, out["q4"], out["taus1"])
+    lap("stage5_bt_reduction_to_band_and_layout", t)
+    return w[:n], v, secs, out
+
+
+def _dist_stage4(out, taus2):
+    q = out["q3"].to(out["packed"].data.dtype)
+    if q.is_complex():
+        q = torch.cat([out["phases"], out["phases"].new_ones((out["m"] - out["pm"],))])[:, None] * q
+    return s23.bt_band_to_tridiag_dist(
+        q, out["vs"], taus2, out["band"], out["pm"], out["grid"],
+        group_size=dt.get_tune_parameters().bt_band_to_tridiag_hh_apply_group_size)
+
+
+def _dist_stage5(out, q4, taus1):
+    q = s23.bt_reduction_to_band_dist(q4, out["packed"], taus1, out["band"])
+    return s23.cols_to_canonical(q, dist=out["dist"], grid=out["grid"])
+
+
+def _profiled_idle(call, wall_s: float) -> dict:
+    """``call`` once under ``torch.profiler``, tracing the card only: the
+    device-busy total (the kernels' and copies' durations, summed from the
+    profiler's raw events: eigh_dist launches some 10^5 kernels, which
+    ``key_averages`` takes minutes to fold), and the idle share of
+    ``wall_s``, an unprofiled run's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            ns, count = by_name.get(e.name(), (0, 0))
+            by_name[e.name()] = (ns + e.duration_ns(), count + 1)
+    busy_ms = sum(ns for ns, _ in by_name.values()) / 1e6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return {"device_busy_ms": busy_ms, "wall_ms": wall_s * 1e3,
+            "idle_share": 1 - busy_ms / (wall_s * 1e3), "launches": sum(c for _, c in by_name.values()),
+            "top": [{"name": k[:80], "ms": ns / 1e6, "launches": c} for k, (ns, c) in top]}
+
+
+def phase_dist_eigh_main() -> None:
+    """The distributed eigensolver on a 1x1 grid at eigh_main's
+    configuration (f32, n = 8192, band 128, nb = 512): eigh_dist and eigh
+    in turns (dist/local is the metric), K3 counted on eigh_dist's path, a
+    staged run timed by stage and held bit-equal to the entry point's
+    eigenvalues, the gates (orth, residual, eigenvalues against f64, in
+    EIGH_BOUNDS) each beside a planted fault (one stage-4 reflector group
+    skipped, one stage-1 reflector not unitary, one subdiagonal entry
+    lost), the device's idle share of one eigh_dist; eigvalsh_dist;
+    eigh_gen_dist against eigh_gen in turns with their gates beside a
+    perturbed factor of B; and complex64 eigh_dist at n = 4096 (K3's
+    streamed instance)."""
+    n, b = N_EIGH, B_EIGH
+    gc.collect()
+    torch.cuda.empty_cache()
+    one = dt.Grid((1, 1))
+    a = _eigh_input(torch.float32)
+    a64 = a.double()
+    w64 = torch.linalg.eigvalsh(a64)
+    dm = dt.DistMatrix.from_global(a, NB_MAIN, one)
+    secs = {"dist": [], "local": []}
+    res = {}
+    part = {}
+    t_part = time.perf_counter()
+    for which in ("dist", "local", "dist"):
+        _counters_reset()
+        t, r = _sync_s((lambda: dt.eigh_dist(dm)) if which == "dist" else
+                       (lambda: dt.eigh(a, band=b)))
+        secs[which].append(t)
+        if which == "dist":
+            counts = _counters()
+            res["dist"] = r
+        del r
+    part["turns"] = time.perf_counter() - t_part
+    w, v = res.pop("dist")
+    v = v.data
+    launches = counts["band_to_tridiag_strips"]
+    require(launches == 1, f"eigh_dist n={n} f32 on 1x1: K3 launches {counts}")
+    _launch_path("band_to_tridiag_strips", "eigh_dist n=8192 (1x1)", launches)
+    readings = _eigh_readings(a64, w, v, w64)
+    _eigh_gates(readings, "eigh_dist n=8192 f32")
+    t_part = time.perf_counter()
+    ws, vs_, stages, out = _dist_eigh_stages(dm)
+    same = {"w_staged": torch.equal(ws, w), "v_staged": torch.equal(vs_.data, v)}
+    require(same["w_staged"], f"the staged eigh_dist computes what dt.eigh_dist does ({same})")
+    del vs_
+    planted = {}
+    bad = out["taus2"].clone()
+    g_mid = bad.shape[0] // 2
+    gsz = dt.get_tune_parameters().bt_band_to_tridiag_hh_apply_group_size
+    bad[g_mid:g_mid + gsz] = 0                    # one stage-4 reflector group skipped
+    planted["res"] = _eigh_readings(a64, ws, _dist_stage5(out, _dist_stage4(out, bad),
+                                                          out["taus1"]), w64)["res"]
+    bad = out["taus1"].clone()
+    bad[n // 2] *= 1.1                            # one stage-1 reflector not unitary
+    planted["orth"] = _eigh_readings(a64, ws, _dist_stage5(out, out["q4"], bad), w64)["orth"]
+    e_bad = out["e"].clone()
+    e_bad[n // 2] = 0                             # one subdiagonal entry lost
+    w_bad = tridiag_eigh_dist(out["d"], e_bad, one, dt.get_tune_parameters().laed4_max_iter)[0]
+    planted["eig"] = float((w_bad[:n].double() - w64).abs().max()) / (
+        n * EPS32 * float(a64.abs().max()))
+    for k, bound in EIGH_BOUNDS.items():
+        require(planted[k] > bound, f"the eigh_dist {k} check passes a planted fault "
+                f"({planted[k]})")
+    del out, w_bad, e_bad, bad
+    part["staged_and_planted"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+    idle = _profiled_idle(lambda: dt.eigh_dist(dm), min(secs["dist"]))
+    part["profile"] = time.perf_counter() - t_part
+    t_ev, w_ev = _sync_s(lambda: dt.eigvalsh_dist(dm))
+    ev_reading = float((w_ev.double() - w64).abs().max()) / (n * EPS32 * float(a64.abs().max()))
+    require(ev_reading <= EIGH_BOUNDS["eig"], f"eigvalsh_dist n={n}: eig {ev_reading}")
+    del dm, v, w, ws
+    torch.cuda.empty_cache()
+    t_part = time.perf_counter()
+    gen_out = _dist_gen_main()
+    part["eigh_gen"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+    c64 = _dist_eigh_c64()
+    part["complex64"] = time.perf_counter() - t_part
+    emit("dist_eigh_main", n=n, band=b, nb=NB_MAIN, grid=[1, 1], dtype="float32",
+         seconds=secs, dist_over_local=min(secs["dist"]) / min(secs["local"]),
+         stage_seconds=stages, k3_launches=launches, launches=counts, readings=readings,
+         bit_equal=same, bounds=EIGH_BOUNDS, planted_fault_readings=planted,
+         idle=idle, eigvalsh_dist_seconds=t_ev, eigvalsh_dist_eig=ev_reading,
+         eigh_gen=gen_out, complex64=c64, part_seconds=part)
+
+
+def _dist_gen_main() -> dict:
+    """eigh_gen_dist against eigh_gen at n = 8192 (eigh_gen_main's inputs),
+    in turns; their gates beside column n/2 of B's factor scaled by 1.5."""
+    n, band = N_EIGH, B_EIGH
+    g = torch.Generator(device=DEV).manual_seed(25)
+    a = gen.random_hermitian(g, n, torch.float32)
+    bm = gen.random_hermitian_positive_definite(g, n, torch.float32)
+    a64, b64 = a.double(), bm.double()
+    one = dt.Grid((1, 1))
+    da = dt.DistMatrix.from_global(a, NB_MAIN, one)
+    db = dt.DistMatrix.from_global(bm, NB_MAIN, one, pad_identity=True)
+    secs = {"dist": [], "local": []}
+    dt.set_tune_parameters(leaf_block_size=NB_MAIN)
+    try:
+        for which in ("dist", "local"):
+            _counters_reset()
+            t, r = _sync_s((lambda: dt.eigh_gen_dist(da, db)) if which == "dist" else
+                           (lambda: dt.eigh_gen(a, bm, band=band)))
+            secs[which].append(t)
+            if which == "dist":
+                counts = _counters()
+                w, x = r[0], r[1].data
+            del r
+    finally:
+        dt.reset_tune_parameters()
+    require(counts["potrf_tile"] > 0 and counts["ksub_matmul_masked"] > 0 and
+            counts["band_to_tridiag_strips"] == 1,
+            f"eigh_gen_dist launched K1, K6 and K3 once: {counts}")
+    for k in ("potrf_tile", "ksub_matmul_masked", "band_to_tridiag_strips"):
+        _launch_path(k, "eigh_gen_dist n=8192 (1x1)", counts[k])
+    readings = _gen_readings(a64, b64, w, x)
+    l_bad = torch.linalg.cholesky(bm)
+    l_bad[:, n // 2] *= 1.5
+    w_bad, x_bad = dt.eigh_gen_dist(da, dt.DistMatrix.from_global(l_bad, NB_MAIN, one, True),
+                                    b_factorized=True)
+    planted = _gen_readings(a64, b64, w_bad, x_bad.data)
+    require(readings["miniapp_gate"], f"eigh_gen_dist n={n}: the miniapp's gates ({readings})")
+    for k, bound in GEN_BOUNDS.items():
+        require(readings[k] <= bound < planted[k],
+                f"eigh_gen_dist {k}: reading {readings[k]}, planted {planted[k]}, bound {bound}")
+    return {"n": n, "seconds": secs, "dist_over_local": min(secs["dist"]) / min(secs["local"]),
+            "launches": counts, "readings": readings, "bounds": GEN_BOUNDS,
+            "planted_fault_readings": planted}
+
+
+def _dist_eigh_c64() -> dict:
+    """complex64 eigh_dist at n = 4096 on 1x1 (K3's streamed instance)."""
+    n = N_EIGH_C
+    a = _eigh_input(torch.complex64)
+    a64 = a.to(torch.complex128)
+    w64 = torch.linalg.eigvalsh(a64)
+    dm = dt.DistMatrix.from_global(a, NB_MAIN, dt.Grid((1, 1)))
+    _counters_reset()
+    t, (w, v) = _sync_s(lambda: dt.eigh_dist(dm))
+    launches = band_to_tridiag_strips_kernel.launches
+    require(launches == 1, f"eigh_dist n={n} c64: K3 launches {launches}")
+    _launch_path("band_to_tridiag_strips", "eigh_dist n=4096 complex64 (1x1)", launches)
+    readings = _eigh_readings(a64, w, v.data, w64)
+    _eigh_gates(readings, "eigh_dist n=4096 c64")
+    return {"n": n, "seconds": t, "k3_launches": launches,
+            "k3_instance": chase_plan(n, B_EIGH, torch.complex64).instance,
+            "readings": readings}
+
+
+def _capture_stage2(store):
+    """dist_stage23's K3 calls, each with (d, e) kept on the host."""
+    real = s23.band_to_tridiag_strips_kernel
+
+    def wrap(*args, **kw):
+        d, e, vs, taus = real(*args, **kw)
+        store.append((d.cpu(), e.cpu()))
+        return d, e, vs, taus
+
+    return _patched(s23, "band_to_tridiag_strips_kernel", lambda _: wrap)
+
+
+def _eig_grid_rank(grid, device) -> dict:
+    """One rank of phase_dist_eigh_grid: eigh_dist for each of
+    EIG_GRID_CASES (the 2x2 grid, or a 1x4 grid of the same ranks) with
+    K3's (d, e) kept, and eigh_gen_dist on 2x2 at N_GEN_GRID; rank 0 also
+    runs the 1x1 grid on the same inputs and compares. Then the seven
+    eigensolver miniapps' distributed branches with --check."""
+    one = dt.Grid((1, 1))
+    grids = {(2, 2): grid, (1, 4): dt.Grid((1, 4))}
+    out = {"rank": grid.rank, "seconds": {}, "k3": {}, "de": {}, "compare": {}}
+    refs = {}
+    for gs, n, mode in EIG_GRID_CASES:
+        a = gen.random_hermitian(torch.Generator(device=device).manual_seed(EIG_GRID_SEED), n,
+                                 torch.float32)
+        key = f"{gs[0]}x{gs[1]}-n{n}-{mode}"
+        dt.set_tune_parameters(band_to_tridiag_dist_mode=mode)
+        store = []
+        try:
+            band_to_tridiag_strips_kernel.launches = 0
+            with _capture_stage2(store):
+                t, (w, v) = _sync_s(lambda: dt.eigh_dist(
+                    dt.DistMatrix.from_global(a, NB_MAIN, grids[gs])))
+        finally:
+            dt.reset_tune_parameters()
+        out["seconds"][key] = t
+        out["k3"][key] = band_to_tridiag_strips_kernel.launches
+        out["de"][key] = [(d.numpy(), e.numpy()) for d, e in store]
+        vg = v.to_global()
+        if grid.rank == 0:
+            if n not in refs:
+                refs[n] = dt.eigvalsh_dist(dt.DistMatrix.from_global(a, NB_MAIN, one))
+            r = _eigh_readings(a.double(), w, vg, torch.linalg.eigvalsh(a.double()))
+            r["eig_vs_1x1"] = float((w - refs[n]).abs().max()) / (
+                n * EPS32 * float(refs[n].abs().max()))
+            out["compare"][key] = r
+        del v, vg
+    n = N_GEN_GRID
+    g = torch.Generator(device=device).manual_seed(EIG_GRID_SEED + 1)
+    a = gen.random_hermitian(g, n, torch.float32)
+    bm = gen.random_hermitian_positive_definite(g, n, torch.float32)
+    potrf_tile.launches = ksub_matmul_masked.launches = band_to_tridiag_strips_kernel.launches = 0
+    t, (w, x) = _sync_s(lambda: dt.eigh_gen_dist(dt.DistMatrix.from_global(a, NB_MAIN, grid),
+                                                 dt.DistMatrix.from_global(bm, NB_MAIN, grid,
+                                                                           True)))
+    key = f"gen-2x2-n{n}"
+    out["seconds"][key] = t
+    out["gen_launches"] = {"potrf_tile": potrf_tile.launches,
+                           "ksub_matmul_masked": ksub_matmul_masked.launches,
+                           "band_to_tridiag_strips": band_to_tridiag_strips_kernel.launches}
+    xg = x.to_global()
+    if grid.rank == 0:
+        w1, x1 = dt.eigh_gen_dist(dt.DistMatrix.from_global(a, NB_MAIN, one),
+                                  dt.DistMatrix.from_global(bm, NB_MAIN, one, True))
+        r = _gen_readings(a.double(), bm.double(), w, xg)
+        r["eig_vs_1x1"] = float((w - w1).abs().max()) / (n * EPS32 * float(w1.abs().max()))
+        out["compare"][key] = r
+    del a, bm, x, xg
+    torch.cuda.empty_cache()
+    out["miniapps"] = {}
+    for name, mod, argv in EIG_GRID_MINIAPPS:
+        band_to_tridiag_strips_kernel.launches = 0
+        out["miniapps"][name] = {"out": _miniapp(argv + EIG_GRID_COMMON, mod),
+                                 "k3_launches": band_to_tridiag_strips_kernel.launches}
+    return out
+
+
+def phase_dist_eigh_grid() -> None:
+    """The distributed eigensolver on four gloo ranks sharing the card
+    (``spawn_grid``): eigh_dist on 2x2 at n = 4096 and on 1x4 at n = 2048
+    in the replicated stage 2 (K3 once on every rank, d and e equal on
+    every rank), and at n = 1024 on both in the pipelined one (no K3),
+    eigh_gen_dist on 2x2 at n = 2048 (K6 and K3 on every rank, K1 on those
+    that hold diagonal tiles), each
+    gathered and held to the 1x1 grid's result on rank 0 (eigenvalues
+    within n eps32 max|w|) and to the gates (GRID_EIGH_BOUNDS,
+    GRID_GEN_BOUNDS and the miniapps'); then the seven eigensolver
+    miniapps' distributed branches with --check."""
+    t0 = time.perf_counter()
+    outs = spawn_grid(_eig_grid_rank, (2, 2), backend="gloo", device="cuda", timeout=900)
+    seconds = time.perf_counter() - t0
+    r0 = outs[0]
+    de_equal = all(len(r["de"][key]) == len(r0["de"][key]) and
+                   all(bool((d == d0).all() and (e == e0).all())
+                       for (d, e), (d0, e0) in zip(r["de"][key], r0["de"][key]))
+                   for r in outs for key in r["de"])
+    for key in r0["k3"]:
+        if key.endswith("replicated"):
+            _launch_path("band_to_tridiag_strips", f"dist_eigh_grid eigh_dist {key} (per rank)",
+                         r0["k3"][key])
+    emit("dist_eigh_grid", cases=EIG_GRID_CASES, n_gen=N_GEN_GRID, nb=NB_MAIN, band=B_EIGH,
+         bounds=GRID_EIGH_BOUNDS, gen_bounds=GRID_GEN_BOUNDS, backend="gloo",
+         ranks_on_one_card=4, seconds=seconds, compare=r0["compare"],
+         rank_seconds=[r["seconds"] for r in outs], k3_launches=[r["k3"] for r in outs],
+         gen_launches=[r["gen_launches"] for r in outs], d_e_equal_across_ranks=de_equal,
+         miniapps={k: v["out"].strip().splitlines() for k, v in r0["miniapps"].items()},
+         miniapp_k3_launches={k: v["k3_launches"] for k, v in r0["miniapps"].items()})
+    for key, r in r0["compare"].items():
+        require(r["eig_vs_1x1"] <= 1.0, f"grid {key}: eigenvalues {r['eig_vs_1x1']} n eps32 "
+                "max|w| from the 1x1 grid's")
+        require(r["miniapp_gate"], f"grid {key}: the miniapp's gates ({r})")
+        for k, bound in (GRID_GEN_BOUNDS if key.startswith("gen") else GRID_EIGH_BOUNDS).items():
+            require(r[k] <= bound, f"grid {key}: {k} {r[k]} > {bound}")
+    require(de_equal, "grid: K3's d and e differ between ranks")
+    for r in outs:
+        for key, k3 in r["k3"].items():
+            want = 1 if key.endswith("replicated") else 0
+            require(k3 == want and len(r["de"][key]) == want,
+                    f"grid rank {r['rank']} {key}: K3 launches {k3}")
+        # K1 runs on the ranks that hold diagonal tiles, K6 and K3 on every rank
+        gl = r["gen_launches"]
+        require(gl["ksub_matmul_masked"] > 0 and gl["band_to_tridiag_strips"] == 1,
+                f"grid rank {r['rank']} gen: {gl}")
+    require(sum(r["gen_launches"]["potrf_tile"] for r in outs) > 0, "grid gen: no K1 launch")
+    for name, m in r0["miniapps"].items():
+        require("check: PASSED" in m["out"], f"distributed miniapp {name}: {m['out']}")
+    require(all(m["out"] == "" for r in outs[1:] for m in r["miniapps"].values()),
+            "only rank 0 of the miniapps prints")
+
 PHASES = (phase_device, phase_k1, phase_k2, phase_main, phase_miniapp, phase_info,
           phase_k6, phase_dist_main, phase_dist_grid, phase_k3, phase_eigh_main, phase_eigh_c64, phase_miniapp_eigensolver, phase_k45,
           phase_eigh_large_main, phase_eigh_large_cases, phase_blas_main, phase_eigh_gen_main,
-          phase_stage_miniapps, phase_dist_blas_main, phase_dist_blas_grid)
+          phase_stage_miniapps, phase_dist_blas_main, phase_dist_blas_grid,
+          phase_dist_eigh_main, phase_dist_eigh_grid)
 
 
 def main() -> None:

@@ -15,7 +15,9 @@ multiplication, gen_to_std, generalized eigensolver, and the five stage
 miniapps) and ``kernel_runner``. The distributed data model (``dist``,
 ``comm`` on ``torch.distributed``, ``DistMatrix`` with ``transpose`` and
 ``symmetrize``), the distributed Cholesky (``cholesky``,
-``cholesky_info``, with kernel K6) and the distributed BLAS-3
+``cholesky_info``, with kernel K6), the distributed eigensolver
+(``eigh_dist``, ``eigvalsh_dist``, ``eigh_gen_dist``, kernel K3 on every
+rank's replicated stage 2) and the distributed BLAS-3
 (``triangular_solver``, ``general_multiplication``,
 ``hermitian_multiplication``, ``triangular_multiplication``,
 ``generalized_to_standard_dist``, ``max_norm``, ``permute``) run one
@@ -24,6 +26,7 @@ process per rank of a process ``Grid``. The package never imports JAX.
 from . import types
 from .algos.cholesky import cholesky, cholesky_info
 from .algos.eigensolver.band2tridiag import band_to_tridiag_auto
+from .algos.eigensolver.dist_driver import eigh_dist, eigh_gen_dist, eigvalsh_dist
 from .algos.eigensolver.driver import _phase_normalize, eigh, eigh_gen, get_band_size
 from .algos.eigensolver.large import eigh_large, eigvalsh_large
 from .algos.eigensolver.red2band import extract_band, reduction_to_band
@@ -44,7 +47,8 @@ from .tune import (TuneParameters, from_dict, get_tune_parameters,
 
 __all__ = ["types", "potrf", "potrf_info", "trsm", "trmm", "hemm", "herk", "gemm",
            "eigh", "eigvalsh", "eigh_gen", "hegst", "eigh_large", "eigvalsh_large",
-           "cholesky", "cholesky_info", "triangular_solver", "general_multiplication",
+           "cholesky", "cholesky_info", "eigh_dist", "eigvalsh_dist", "eigh_gen_dist",
+           "triangular_solver", "general_multiplication",
            "hermitian_multiplication", "triangular_multiplication",
            "generalized_to_standard_dist", "max_norm", "permute", "DistMatrix", "Grid",
            "TuneParameters",

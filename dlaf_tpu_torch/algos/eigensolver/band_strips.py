@@ -161,3 +161,101 @@ def band_to_tridiag_strips(strips: torch.Tensor, n: int, b: int, sweep_lo: int =
             taus[srec, c] = tau
     d, e = strips_extract_tridiag(strips, n, b)
     return d, e, vs[:nrec], taus[:nrec]
+
+
+def restripe(strips_nb: torch.Tensor, nb: int, b: int, ns_out: int) -> torch.Tensor:
+    """nb-strip storage -> b-strip storage (b | nb), a new tensor; the
+    replicated O(n*b) pass between stage 1 on nb tiles and a stage 2 that
+    chases a band of width b < nb (reference ``get_1d_block_size.h:19-21``).
+
+    b-strip s starts at row r0 = s*b, inside nb-strip t = r0 // nb at row
+    r0 % nb; its column 0, global (s-3)*b, is column r0 % nb + 3(nb - b)
+    of strip t. A start past the last nb-strip reads that strip, which is
+    zero padding, as JAX's clamped ``dynamic_slice`` does.
+    """
+    if nb % b:
+        raise ValueError(f"restripe needs b | nb, got nb={nb}, b={b}")
+    out = strips_nb.new_zeros((ns_out, b, STRIP_W * b))
+    for s in range(ns_out):
+        t, rl0 = divmod(s * b, nb)
+        t = min(t, strips_nb.shape[0] - 1)
+        c0 = rl0 + 3 * (nb - b)
+        out[s] = strips_nb[t, rl0:rl0 + b, c0:c0 + STRIP_W * b]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# wavefront (pipelined) chasing: the schedule of the compute-distributed
+# stage 2 (reference SweepWorkerDist handoff,
+# eigensolver/band_to_tridiag/mc.h:568-661).
+#
+# Chase (s, c) runs at wavefront time t = 3s + c. Concurrent chases then
+# differ in i0 = s + 1 + c*b by multiples of 3b-1, so their (2b x 2b)
+# windows are element-disjoint, and every ordered pair of overlapping
+# chases runs in the sequential order: the pipelined result is
+# bit-identical to the sequential sweep loop.
+
+
+def wavefront_nsteps(n: int, b: int) -> int:
+    nsweeps = max(n - 2, 1)
+    ncmax = -(-(n - 1) // b)
+    return 3 * (nsweeps - 1) + ncmax
+
+
+def wavefront_k(S: int, b: int) -> int:
+    """Upper bound on concurrent chases inside a segment of S strips."""
+    return (S * b) // (3 * b - 1) + 2
+
+
+def wavefront_chases(t: int, *, n: int, b: int, S: int, seg0: int, K: int):
+    """The chases (s, c, i0) of wavefront step ``t`` whose reflector row i0
+    lies in strip rows [seg0*b, (seg0+S)*b), as JAX's K-slot loop visits
+    them (its masked slots left out)."""
+    lo, hi = seg0 * b, (seg0 + S) * b
+    # i0(s) = t*b + 1 + s*(1 - 3b) decreases in s: the smallest active s
+    # satisfies i0 < hi
+    s_min = (t * b + 1 - hi) // (3 * b - 1) + 1
+    out = []
+    for s in range(s_min, s_min + K):
+        c = t - 3 * s
+        i0 = s + 1 + c * b
+        if 0 <= s < n - 2 and 0 <= c < -(-(n - 1 - s) // b) and lo <= i0 < hi:
+            out.append((s, c, i0))
+    return out
+
+
+def chase_wavefront_step(ext: torch.Tensor, vs: torch.Tensor, taus: torch.Tensor, t: int, *,
+                         n: int, b: int, S: int, seg0: int, K: int) -> None:
+    """Run every wavefront-``t`` chase whose i0 lies in strip rows
+    [seg0*b, (seg0+S)*b) on the extended local strip array ``ext``
+    ((S+2, b, 5b): strips seg0 .. seg0+S+1, the last two a right halo),
+    in place.
+
+    Reflectors are recorded segment-locally: sweep s's chases in this
+    segment land at vs[s, c - c_lo(s)] with c_lo(s) = max(0, seg0 - (s+1)//b).
+    """
+    for s, c, i0 in wavefront_chases(t, n=n, b=b, S=S, seg0=seg0, K=K):
+        i0l = i0 - seg0 * b
+        g_, s3, im = _chase_window(ext, i0l, b)
+        g_new, v, tau = chase_math(g_, c == 0, b)
+        _chase_scatter(ext, g_new, s3, im, i0l, b)
+        crec = c - max(0, seg0 - (s + 1) // b)
+        vs[s, crec] = v
+        taus[s, crec] = tau
+
+
+def band_to_tridiag_wavefront(strips: torch.Tensor, n: int, b: int):
+    """One-device wavefront-scheduled chase: the result of
+    :func:`band_to_tridiag_strips`, bit for bit, on the t = 3s + c
+    schedule that the distributed chase runs per segment."""
+    ns = strips.shape[0]
+    nsweeps = n - 2
+    ncmax = -(-(n - 1) // b)
+    ext = torch.cat([strips, strips.new_zeros((2, b, STRIP_W * b))])
+    vs = strips.new_zeros((nsweeps, ncmax, b))
+    taus = strips.new_zeros((nsweeps, ncmax))
+    K = wavefront_k(ns, b)
+    for t in range(wavefront_nsteps(n, b)):
+        chase_wavefront_step(ext, vs, taus, t, n=n, b=b, S=ns, seg0=0, K=K)
+    d, e = strips_extract_tridiag(ext[:ns], n, b)
+    return d, e, vs, taus

@@ -141,15 +141,22 @@ def _exchanged(x: torch.Tensor, out: torch.Tensor, run) -> torch.Tensor:
     return out
 
 
-def sendrecv(x: torch.Tensor, dst: int, src: int, shape) -> torch.Tensor:
+def sendrecv(x: torch.Tensor, dst, src, shape) -> torch.Tensor:
     """Send ``x`` to global rank ``dst`` and receive from global rank
     ``src`` a new tensor of ``shape`` (x's dtype and device). Both are
     posted together as one ``batch_isend_irecv``, so that ranks that swap
-    with each other cannot deadlock. Neither peer may be this rank."""
+    with each other cannot deadlock. Neither peer may be this rank. A peer
+    of None is left out: nothing is sent (``dst``), or nothing is received
+    and the result is zeros (``src``), as at the ends of a JAX
+    ``ppermute`` that is not a ring."""
     def run(send, recv):
-        for req in dist.batch_isend_irecv([dist.P2POp(dist.isend, send, dst),
-                                           dist.P2POp(dist.irecv, recv, src)]):
-            req.wait()
+        ops = ([] if dst is None else [dist.P2POp(dist.isend, send, dst)]) + \
+            ([] if src is None else [dist.P2POp(dist.irecv, recv, src)])
+        if src is None:
+            recv.zero_()
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
 
     return _exchanged(x, torch.empty(shape, dtype=x.dtype, device=x.device), run)
 

@@ -1,12 +1,17 @@
 """Eigensolver miniapp (reference ``miniapp/miniapp_eigensolver.cpp``).
 
-PyTorch counterpart of :mod:`dlaf_tpu.miniapps.miniapp_eigensolver`, local
-branch: wall time per solve, and with ``--check`` the gates of the JAX
-miniapp, max|V^H V - I| <= 500 n eps and max|A V - V diag(w)| <=
-1000 n eps max(1, max|A|).
+PyTorch counterpart of :mod:`dlaf_tpu.miniapps.miniapp_eigensolver`:
+wall time per solve, and with ``--check`` the gates of the JAX miniapp,
+max|V^H V - I| <= 500 n eps and max|A V - V diag(w)| <= 1000 n eps
+max(1, max|A|). Local: ``eigh``. Distributed (one process per rank):
+``eigh_dist`` on a block-cyclic ``DistMatrix`` of block size ``-b``
+(kernel K3 in every rank's stage 2 on the card); only rank 0 prints.
 
-Run: ``python -m dlaf_tpu_torch.miniapps.miniapp_eigensolver -n 4096 --check``
+Local: ``python -m dlaf_tpu_torch.miniapps.miniapp_eigensolver -n 4096 --check``
 (``--device cpu`` runs the plain versions of the kernels).
+Distributed: ``torchrun --nproc-per-node 4 -m dlaf_tpu_torch.miniapps.miniapp_eigensolver
+-n 4096 -b 512 --grid-rows 2 --grid-cols 2 --check`` (``--comm-backend gloo`` for several
+ranks on one card).
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ import torch
 
 import dlaf_tpu_torch as dt
 from dlaf_tpu_torch.matrix import generators as gen
+from dlaf_tpu_torch.matrix.dist_matrix import DistMatrix
 from dlaf_tpu_torch.types import eps
 
 from . import options
@@ -34,19 +40,24 @@ def check_eigh(a: torch.Tensor, w: torch.Tensor, v: torch.Tensor, dtype):
 
 def main(argv=None):
     args = options.parser("miniapp_eigensolver").parse_args(argv)
-    options.refuse_grid(args, "eigensolver",
-                        "dist_red2band, dist_stage23, tridiag_dc_dist and dist_driver")
     n = args.matrix_size
     dtype = options.dtype_of(args)
-    device = options.device_of(args)
-    a = gen.random_hermitian(torch.Generator(device=device).manual_seed(0), n, dtype)
-    fn = functools.partial(dt.eigh, a, uplo=args.uplo, band=args.band_size)
+    with options.process_grid(args) as grid:
+        device = options.device_of(args)
+        a = gen.random_hermitian(torch.Generator(device=device).manual_seed(0), n, dtype)
+        if grid is None:
+            fn = functools.partial(dt.eigh, a, uplo=args.uplo, band=args.band_size)
+            get = lambda out: out   # noqa: E731
+        else:
+            fn = functools.partial(dt.eigh_dist, DistMatrix.from_global(a, args.block_size, grid))
+            get = lambda out: (out[0], out[1].to_global())   # noqa: E731
 
-    def check(out):
-        ok, orth, res = check_eigh(a, out[0], out[1], dtype)
-        return ok, f"orth {orth:.2e} res {res:.2e}"
+        def check(out):
+            w, v = get(out)
+            ok, orth, res = check_eigh(a, w, v, dtype)
+            return ok, f"orth {orth:.2e} res {res:.2e}"
 
-    options.run_timed(args, fn, 0, check_fn=check)
+        options.run_timed(args, fn, 0, check_fn=check)
 
 
 if __name__ == "__main__":

@@ -1,14 +1,17 @@
 """Generalized eigensolver miniapp (reference ``miniapp/miniapp_gen_eigensolver.cpp``).
 
-PyTorch counterpart of :mod:`dlaf_tpu.miniapps.miniapp_gen_eigensolver`,
-local branch: ``eigh_gen`` of a random hermitian A and a random hermitian
-positive definite B (K1 factors B, K3 runs the eigensolver's stage 2 on
-the card in f32); wall time per solve, and with ``--check`` the JAX
-miniapp's gates, max|A X - B X diag(w)| <= 2000 n eps max(1, max|A|) and
-max|X^H B X - I| <= 2000 n eps. ``--input-file`` waits for
-``matrix/io.py``.
+PyTorch counterpart of :mod:`dlaf_tpu.miniapps.miniapp_gen_eigensolver`:
+``eigh_gen`` (local) or ``eigh_gen_dist`` (distributed, one process per
+rank, block size ``-b``; only rank 0 prints) of a random hermitian A and a
+random hermitian positive definite B (K1 factors B, K3 runs the
+eigensolver's stage 2 on the card in f32); wall time per solve, and with
+``--check`` the JAX miniapp's gates, max|A X - B X diag(w)| <= 2000 n eps
+max(1, max|A|) and max|X^H B X - I| <= 2000 n eps. ``--input-file`` waits
+for ``matrix/io.py``.
 
-Run: ``python -m dlaf_tpu_torch.miniapps.miniapp_gen_eigensolver -n 4096 --check``
+Local: ``python -m dlaf_tpu_torch.miniapps.miniapp_gen_eigensolver -n 4096 --check``
+Distributed: ``torchrun --nproc-per-node 4 -m dlaf_tpu_torch.miniapps.miniapp_gen_eigensolver
+-n 4096 -b 512 --grid-rows 2 --grid-cols 2 --check``
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import torch
 
 import dlaf_tpu_torch as dt
 from dlaf_tpu_torch.matrix import generators as gen
+from dlaf_tpu_torch.matrix.dist_matrix import DistMatrix
 from dlaf_tpu_torch.types import eps
 
 from . import options
@@ -36,21 +40,28 @@ def check_eigh_gen(a: torch.Tensor, b: torch.Tensor, w: torch.Tensor, x: torch.T
 
 def main(argv=None):
     args = options.parser("miniapp_gen_eigensolver").parse_args(argv)
-    options.refuse_grid(args, "generalized eigensolver",
-                        "the distributed eigensolver and eigh_gen_dist")
     n = args.matrix_size
     dtype = options.dtype_of(args)
-    device = options.device_of(args)
-    a = gen.random_hermitian(torch.Generator(device=device).manual_seed(0), n, dtype)
-    b = gen.random_hermitian_positive_definite(
-        torch.Generator(device=device).manual_seed(1), n, dtype)
-    fn = functools.partial(dt.eigh_gen, a, b, uplo=args.uplo, band=args.band_size)
+    with options.process_grid(args) as grid:
+        device = options.device_of(args)
+        a = gen.random_hermitian(torch.Generator(device=device).manual_seed(0), n, dtype)
+        b = gen.random_hermitian_positive_definite(
+            torch.Generator(device=device).manual_seed(1), n, dtype)
+        if grid is None:
+            fn = functools.partial(dt.eigh_gen, a, b, uplo=args.uplo, band=args.band_size)
+            get = lambda out: out   # noqa: E731
+        else:
+            da = DistMatrix.from_global(a, args.block_size, grid)
+            db = DistMatrix.from_global(b, args.block_size, grid, pad_identity=True)
+            fn = functools.partial(dt.eigh_gen_dist, da, db)
+            get = lambda out: (out[0], out[1].to_global())   # noqa: E731
 
-    def check(out):
-        ok, res, borth = check_eigh_gen(a, b, out[0], out[1], dtype)
-        return ok, f"res {res:.2e} B-orth {borth:.2e}"
+        def check(out):
+            w, x = get(out)
+            ok, res, borth = check_eigh_gen(a, b, w, x, dtype)
+            return ok, f"res {res:.2e} B-orth {borth:.2e}"
 
-    options.run_timed(args, fn, 0, check_fn=check)
+        options.run_timed(args, fn, 0, check_fn=check)
 
 
 if __name__ == "__main__":

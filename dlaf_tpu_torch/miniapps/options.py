@@ -112,14 +112,6 @@ def process_grid(args):
             dist.destroy_process_group()
 
 
-def refuse_grid(args, what: str, needs: str) -> None:
-    """Raise where a grid larger than 1x1 asks for a distributed branch
-    that is not ported yet: ROADMAP Queue 1 item 6, and what it needs."""
-    if args.grid_rows * args.grid_cols > 1:
-        raise NotImplementedError(
-            f"the distributed {what} is not ported yet (ROADMAP Queue 1 item 6: {needs})")
-
-
 def sync(device: torch.device) -> None:
     """Fence: wait until the device has finished all queued work, and in a
     distributed run until every rank has (the reference's

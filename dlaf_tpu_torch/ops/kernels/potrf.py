@@ -58,15 +58,21 @@ def potrf_tile_ref(a: torch.Tensor, upper: bool = False) -> torch.Tensor:
     """Plain version: ``torch.linalg.cholesky_ex`` on the mirrored tile.
 
     Reads only the ``upper`` (or lower) triangle of ``a`` and returns U
-    (A = U^H U) or L (A = L L^H) with the other triangle zero. Where the
-    tile is not positive definite the factor's triangle is NaN, as XLA's
-    Cholesky leaves it on the CPU, so that ``potrf_info`` sees the failure.
+    (A = U^H U) or L (A = L L^H) with the other triangle zero. Where a
+    pivot fails on a finite tile the factor's triangle is NaN, as XLA's
+    Cholesky leaves it on the CPU. Where the tile holds a non-finite entry,
+    XLA's factor lets the NaN flow forward instead: its columns are NaN
+    from the first failing pivot on (``cholesky_ex``'s info), and here
+    too, so that ``potrf_info`` reports that pivot as the JAX package does.
     bf16 is factored in f32 and rounded back.
     """
     work = a.float() if a.dtype == torch.bfloat16 else a
-    l, info = torch.linalg.cholesky_ex(symmetrize_tri(work, lower=not upper))
+    sym = symmetrize_tri(work, lower=not upper)
+    l, info = torch.linalg.cholesky_ex(sym)
     n = a.shape[0]
-    bad = (info > 0) & tril_mask(n, device=a.device)
+    cols = torch.arange(n, device=a.device) >= info - 1
+    cols = cols | torch.isfinite(sym).all()
+    bad = (info > 0) & tril_mask(n, device=a.device) & cols[None, :]
     l = l.masked_fill(bad, float("nan")).to(a.dtype)
     return ct(l).resolve_conj() if upper else l
 

@@ -52,6 +52,9 @@ class TuneParameters:
     # and the subtract in one register accumulator). "kernel" is the
     # default so that the main path on the card runs the hand kernels.
     potrf_trailing_kernel: str = "kernel"
+    # the distributed stage 2 (dist_stage23.band_to_tridiag_dist):
+    # "replicated" (every rank chases the band, K3 on the card, and records
+    # its sweep chunk) or "pipelined" (the sweeps pipelined over the ranks)
     band_to_tridiag_dist_mode: str = "replicated"
     # f32 products always run in full f32 (ops/core.py turns TF32 off); the
     # field is kept for parity with the JAX package

@@ -168,15 +168,11 @@ DISTRIBUTED = ("triangular_solver", "triangular_multiplication", "gen_to_std")
 
 @pytest.mark.parametrize("name", list(MINIAPPS))
 def test_miniapps_grid_not_ported(name):
-    """A grid larger than 1x1: the miniapps with a distributed branch refuse
-    to run it outside torchrun (no process group, world size 1), naming
-    the command; the generalized eigensolver's branch is not ported."""
+    """A grid larger than 1x1: every one of these miniapps has a
+    distributed branch, and refuses to run it outside torchrun (no process
+    group, world size 1), naming the command."""
     mod, argv = MINIAPPS[name]
-    if name in DISTRIBUTED:
-        with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
-            mod.main(argv + ["--grid-rows", "2", "--device", "cpu"])
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
         mod.main(argv + ["--grid-rows", "2", "--device", "cpu"])
 
 

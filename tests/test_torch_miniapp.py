@@ -99,5 +99,7 @@ def test_miniapp_eigensolver_check_gates():
 
 
 def test_miniapp_eigensolver_grid_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The distributed branch needs a process group of P*Q ranks: outside
+    torchrun it refuses, naming the command."""
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
         miniapp_eigensolver.main(["-n", "64", "--grid-rows", "2", "--device", "cpu"])

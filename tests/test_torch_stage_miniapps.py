@@ -4,8 +4,9 @@ The stage miniapps (reduction to band, band to tridiagonal, tridiagonal
 solver and the two back-transformations) run with --check in s and d, and
 in z where the stage takes complex input (the tridiagonal solver's matrix
 is real), at the JAX miniapp tests' sizes (tests/test_miniapps.py); each
-refuses a grid larger than 1x1 with a message naming ROADMAP Queue 1 item
-6, and the CSVData-2 row has the JAX miniapp's fields. kernel_runner's
+refuses a grid larger than 1x1 outside torchrun (its distributed branch
+runs in tests/test_torch_dist_eigensolver.py), and the CSVData-2 row has
+the JAX miniapp's fields. kernel_runner's
 kernel table runs on the same numpy tiles as the JAX functions it stands
 for: potrf_leaf, trsm_leaf, mm and set_tri on the CPU, and the Pallas
 ksub_matmul in interpret mode, each held to tol(dtype, nb, 100) relative to
@@ -60,7 +61,7 @@ def test_stage_miniapp_check(name, typ, capsys):
 @pytest.mark.parametrize("name", list(MINIAPPS))
 def test_stage_miniapp_refuses_grid(name):
     mod, argv, _ = MINIAPPS[name]
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
         mod.main(argv + ["--grid-rows", "2", "--device", "cpu"])
 
 

@@ -17,13 +17,22 @@ from dlaf_tpu_torch.comm import collectives as coll
 from dlaf_tpu_torch.comm import panel
 from dlaf_tpu_torch.comm.mesh import COL_AXIS, ROW_AXIS
 from dlaf_tpu_torch.matrix.dist_matrix import DistMatrix
-from dlaf_tpu_torch.miniapps import (miniapp_cholesky, miniapp_gen_to_std,
+from dlaf_tpu_torch.miniapps import (miniapp_band_to_tridiag, miniapp_bt_band_to_tridiag,
+                                     miniapp_bt_reduction_to_band, miniapp_cholesky,
+                                     miniapp_eigensolver, miniapp_gen_eigensolver,
+                                     miniapp_gen_to_std, miniapp_reduction_to_band,
                                      miniapp_triangular_multiplication,
-                                     miniapp_triangular_solver)
+                                     miniapp_triangular_solver, miniapp_tridiag_solver)
 
 MINIAPPS = {"cholesky": miniapp_cholesky, "triangular_solver": miniapp_triangular_solver,
             "triangular_multiplication": miniapp_triangular_multiplication,
-            "gen_to_std": miniapp_gen_to_std}
+            "gen_to_std": miniapp_gen_to_std, "eigensolver": miniapp_eigensolver,
+            "gen_eigensolver": miniapp_gen_eigensolver,
+            "reduction_to_band": miniapp_reduction_to_band,
+            "band_to_tridiag": miniapp_band_to_tridiag,
+            "tridiag_solver": miniapp_tridiag_solver,
+            "bt_band_to_tridiag": miniapp_bt_band_to_tridiag,
+            "bt_reduction_to_band": miniapp_bt_reduction_to_band}
 
 
 def cholesky_cases(cases, grid, device):
@@ -170,3 +179,96 @@ def spd(n, seed, dtype=np.float64):
     if np.dtype(dtype).kind == "c":
         r = r + 1j * rng.uniform(-1, 1, (n, n))
     return ((r + r.conj().T) / 2 + n * np.eye(n)).astype(dtype)
+
+
+def _eig_case(kind, arrays, kw, grid, device):
+    """One case of :func:`dist_eig_cases`, run on every rank; the gathered
+    result."""
+    from dlaf_tpu_torch.algos.eigensolver import dist_stage23 as s23
+    from dlaf_tpu_torch.algos.eigensolver.dist_driver import _eigh_dist_gathered
+    from dlaf_tpu_torch.algos.eigensolver.dist_red2band import reduction_to_band_dist
+
+    nb = kw.get("nb")
+
+    def dm(x, pad=False):
+        return DistMatrix.from_global(torch.from_numpy(x), nb, grid, pad_identity=pad,
+                                      device=device)
+
+    if kind == "red2band":
+        packed, taus = reduction_to_band_dist(dm(arrays[0]), kw["band"])
+        return np.tril(packed.to_global().numpy()), taus.numpy()
+    if kind == "eigh":
+        w, v = dt.eigh_dist(dm(arrays[0]))
+        return w.numpy(), v.to_global().numpy()
+    if kind == "evals":
+        return dt.eigvalsh_dist(dm(arrays[0])).numpy()
+    if kind == "gen":
+        w, x = dt.eigh_gen_dist(dm(arrays[0]), dm(arrays[1], True))
+        return w.numpy(), x.to_global().numpy()
+    if kind == "gathered":
+        w, v = _eigh_dist_gathered(dm(arrays[0]), dt.get_tune_parameters().laed4_max_iter)
+        return w.numpy(), v.to_global().numpy()
+    if kind == "stage2":
+        # the replicated stage 2 on the strips of stage 1's band: d and e
+        # of this rank (each rank chases the same band)
+        packed, _ = reduction_to_band_dist(dm(arrays[0]), kw["band"])
+        strips = s23.strips_from_packed_dist(packed, kw["band"])
+        d, e, vs, taus = s23.band_to_tridiag_dist(strips, packed.dist.padded_size[0],
+                                                  kw["band"], grid)
+        return d.numpy(), e.numpy(), vs.shape
+    if kind == "multichip":
+        spd_a, h = arrays
+        w, x = dt.eigh_gen_dist(dm(h), dm(spd_a, True))
+        dt.set_tune_parameters(band_to_tridiag_dist_mode="pipelined")
+        wp, vp = dt.eigh_dist(dm(h))
+        return w.numpy(), x.to_global().numpy(), wp.numpy(), vp.to_global().numpy()
+    raise ValueError(f"unknown case kind {kind!r}")
+
+
+def dist_eig_cases(cases, grid, device):
+    """Each ``(key, kind, arrays, kw)`` on the grid, with the tune
+    parameters in ``kw["tune"]`` for that case: {key: result} on rank 0
+    (None elsewhere), but ``stage2`` cases on every rank."""
+    out = {}
+    for key, kind, arrays, kw in cases:
+        dt.set_tune_parameters(**kw.get("tune", {}))
+        try:
+            res = _eig_case(kind, arrays, kw, grid, device)
+        finally:
+            dt.reset_tune_parameters()
+        out[key] = res if grid.rank == 0 or kind == "stage2" else None
+    return out
+
+
+def eig_cases_and_miniapps(cases, runs, grid, device):
+    """:func:`dist_eig_cases`, then :func:`miniapps` under the key "miniapps"."""
+    out = dist_eig_cases(cases, grid, device)
+    out["miniapps"] = miniapps(runs, grid, device)
+    return out
+
+
+def tridiag_cases(cases, grid, device):
+    """Each ``(key, kind, arrays, kw)``: ``dc`` runs tridiag_eigh_dist on
+    (d, e) and returns (lam, the gathered q); ``pipelined`` runs the
+    compute-distributed stage 2 on strips and returns (d, e, the
+    sweep-sharded record gathered in flat order). Rank 0's results."""
+    from dlaf_tpu_torch.algos.eigensolver import dist_stage23 as s23
+    from dlaf_tpu_torch.algos.eigensolver.tridiag_dc_dist import rank_of_flat, tridiag_eigh_dist
+
+    out = {}
+    for key, kind, arrays, kw in cases:
+        if kind == "dc":
+            lam, q, m = tridiag_eigh_dist(torch.from_numpy(arrays[0]),
+                                          torch.from_numpy(arrays[1]), grid)
+            res = lam.numpy(), s23.gather_columns(q, grid).numpy(), m
+        else:
+            d, e, vs, taus = s23.band_to_tridiag_dist_pipelined(
+                torch.from_numpy(arrays[0]), kw["n"], kw["b"], grid)
+            order = [rank_of_flat(grid, k) for k in range(grid.size)]
+
+            def sweeps(x):      # the sweep chunks in flat order
+                return coll.allgather_tiles(x, None, grid)[order].flatten(0, 1).numpy()
+
+            res = d.numpy(), e.numpy(), sweeps(vs), sweeps(taus)
+        out[key] = res if grid.rank == 0 else None
+    return out
