@@ -117,6 +117,24 @@ rank's chunk of four, whose sweeps past the end must read tau = 0, and
 ``potrf_info`` also meets a NaN entry, the kernel route's info recorded
 beside the plain route's.
 
+The user surfaces: the ScaLAPACK-style entries on a 1x1 grid at the main
+path's sizes, each beside its driver on a DistMatrix
+(``dlaf_pspotrf`` n = 32768 L and U through K1 and K6, ``dlaf_pssyevd``
+n = 8192 through K3, ``dlaf_pssygvd`` and its ``_factorized`` form,
+``dlaf_pcheevd`` n = 4096, a tile-aligned sub-matrix call), each held to
+its driver's gates beside a planted fault (a factor column x 1.5, a
+stage-4 reflector group skipped) with the other triangle bit-equal to the
+input, and ``c_ppotrf``'s info on a non-SPD sub-block; the C API from
+plain C (the shim built from the checkout, the port's card driver at
+n = 32768 and 8192, checked in C, and the JAX package's
+``tests/c_api_main.c`` unchanged as four gloo ranks on the card); then
+``miniapp_communication`` on 1x1 and 2x2, the eigensolver miniapp writing
+``--output-file`` and reading it back with ``--input-file --check`` at
+n = 8192, ``from_callback``/``sub_matrix``/``set_sub_matrix`` bit-equal to
+``from_global`` and slicing at n = 32768 (1x1) and 8192 (2x2),
+``Grid.multihost``, the ScaLAPACK entries on a 2x2 context and
+``initialize(print_config=True)``.
+
 Every phase prints one JSON line. Any failed check raises, so the exit code
 is not 0; nothing catches it. The last lines are the card's
 ``nvidia-smi`` name and power limit, one JSON line with the kernels, and
@@ -131,10 +149,14 @@ import functools
 import gc
 import io
 import json
+import os
+import socket
 import subprocess
 import sys
 import time
+from pathlib import Path
 
+import numpy as np
 import torch
 
 if not torch.cuda.is_available():
@@ -188,6 +210,11 @@ from dlaf_tpu_torch.ops.kernels.bt_apply import (  # noqa: E402
     bt_apply_fused, bt_apply_fused_ref, bt_apply_fused_split_ref, bt_apply_group,
     bt_apply_group_ref, bt_apply_group_split_ref)
 from dlaf_tpu_torch.types import eps  # noqa: E402
+from dlaf_tpu_torch import init as dinit, native  # noqa: E402
+from dlaf_tpu_torch.api import scalapack as sl  # noqa: E402
+from dlaf_tpu_torch.matrix import io as mio  # noqa: E402
+from dlaf_tpu_torch.miniapps import miniapp_communication  # noqa: E402
+from dlaf_tpu_torch.native import c_entry  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 N_MAIN, NB_MAIN = 32768, 512
@@ -312,6 +339,10 @@ N_LARGE, B_LARGE, LARGE_SEED = 32768, 128, 13
 # trace barely sees a non-unitary reflector), so the trace gate is shown
 # one tridiagonal diagonal entry off by 2 instead.
 LARGE_BOUNDS = {"orth": 0.01, "res": 0.5, "trace": 150.0}
+# the planted faults run as whole eigh_large calls at this n (the readings
+# above are from n = 32768, where each call took ~30 s; the gates' units
+# scale with n)
+N_PLANTED_LARGE = 8192
 # the whole stage 4 through K4/K5 against the cooked cuBLAS route and
 # against K4/K5's plain versions on the same record, max|diff| / (eps32
 # max|E|): the card reads 18.0 and 18.1 at n = 32768 (32,896 chases) through
@@ -387,8 +418,10 @@ GRID_MINIAPP = ["-n", "4096", "-b", "512", "--grid-rows", "2", "--grid-cols", "2
 # The pipelined stage 2 runs at n = 1024: each of its ~3n wavefront steps
 # is up to two send/receives staged through the host between processes
 # that time-slice the card (on an H100, eigh_dist at n = 1024 took 14-22 s
-# a rank with it on 2x2, 9-11 s replicated at n = 4096).
-EIG_GRID_CASES = [((2, 2), 4096, "replicated"), ((2, 2), 1024, "pipelined"),
+# a rank with it on 2x2, 9-11 s replicated at n = 4096). The replicated 2x2
+# case runs at n = 2048 (it ran at 4096 before the user surfaces' phases
+# joined the script's time limit).
+EIG_GRID_CASES = [((2, 2), 2048, "replicated"), ((2, 2), 1024, "pipelined"),
                   ((1, 4), 2048, "replicated"), ((1, 4), 1024, "pipelined")]
 N_GEN_GRID, EIG_GRID_SEED = 2048, 41
 # the grid's gates, in eigh's units (orth in n eps32; res, eig in n eps32
@@ -410,6 +443,25 @@ EIG_GRID_MINIAPPS = [
     ("tridiag_solver", miniapp_tridiag_solver, ["-n", "512"]),
     ("bt_band_to_tridiag", miniapp_bt_band_to_tridiag, ["-n", "512", "--band-size", "128"]),
     ("bt_reduction_to_band", miniapp_bt_reduction_to_band, ["-n", "512", "--band-size", "128"])]
+
+# the user surfaces: dlaf_pspotrf's turns against cholesky (both are warm:
+# cholesky ran in an earlier phase), the
+# tile-aligned sub-matrix call (n = 8192 at ia = ja = 513 of a 16384
+# matrix), and the four gloo ranks' DistMatrix surfaces (n), inputs' seed
+# and sub-matrix tile offset; SURFACE_TIMES keeps the Python surface's
+# seconds for the C caller's
+SURFACE_TURNS = ("surface", "direct")
+N_SUB, N_SUB_FULL = 8192, 16384
+N_SURF_GRID, GRID_SURF_SEED, SUB_OFFSET = 8192, 61, (1, 2)
+SURFACE_TIMES = {}
+SURFACES_HERE = {}     # the surfaces' checks that phase_c_api runs in this process
+SURFACES_FOUR = []     # and those phase_dist_eigh_grid's ranks run, rank by rank
+# eigh_dist's and eigh_gen_dist's seconds on the eigen entries' inputs,
+# from phase_dist_eigh_main (the same function on the same input in this
+# process), so that the ScaLAPACK phase runs each eigensolver surface
+# without running that function again
+DIRECT_TIMES = {}
+
 
 def emit(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, **kw}), flush=True)
@@ -1465,7 +1517,7 @@ def phase_eigh_large_main() -> None:
     K5): a small warm-up, one run with timers (stage seconds and peak
     memory), one timed run (which also keeps a copy of stage 4's input: one
     4 GiB copy, ~3 ms), the probe and trace gates beside planted faults
-    (each a whole call), the whole stage 4 against the cooked cuBLAS route
+    (each a whole call at n = 8192), the whole stage 4 against the cooked cuBLAS route
     and K4/K5's plain versions on the same record, and K4/K5 held to their
     plain versions and timed on that record."""
     n, b = N_LARGE, B_LARGE
@@ -1491,17 +1543,24 @@ def phase_eigh_large_main() -> None:
     same = {"w": torch.equal(w, w2), "v": torch.equal(v, v2)}
     del w2, v2
     readings = _large_gates(a, w, v)
-    planted = {}
+    del v
+    # the planted faults, each a whole call, at n = N_PLANTED_LARGE: the
+    # gates' units scale with n, so a fault reads at least as high there
+    planted = {"n": N_PLANTED_LARGE}
+    a_p = gen.random_hermitian(torch.Generator(device=DEV).manual_seed(LARGE_SEED),
+                               N_PLANTED_LARGE, torch.float32)
     with _patched(large, "_chase", _drop_stage2_tau):
-        wb, vb = large.eigh_large(a, band=b)
-    planted["stage2_tau_dropped"] = _large_gates(a, wb, vb)
+        wb, vb = large.eigh_large(a_p, band=b)
+    planted["stage2_tau_dropped"] = _large_gates(a_p, wb, vb)
     del wb, vb
     with _patched(r2b, "panel_qr", _scale_stage1_tau):
-        wb, vb = large.eigh_large(a, band=b)
-    planted["stage1_tau_scaled"] = _large_gates(a, wb, vb)
-    del wb, vb, v
+        wb, vb = large.eigh_large(a_p, band=b)
+    planted["stage1_tau_scaled"] = _large_gates(a_p, wb, vb)
+    del wb, vb
     with _patched(large, "tridiag_eigh", _shift_diagonal):
-        planted["tridiag_diagonal_shifted_trace"] = _trace_reading(a, large.eigvalsh_large(a, band=b))
+        planted["tridiag_diagonal_shifted_trace"] = _trace_reading(
+            a_p, large.eigvalsh_large(a_p, band=b))
+    del a_p
     st4 = _stage4_and_kernel_times(store, b)
     del store
     emit("eigh_large_main", n=n, band=b, dtype="float32", rec_chunks=1, seconds=secs,
@@ -3304,6 +3363,8 @@ def phase_dist_eigh_main() -> None:
     t_part = time.perf_counter()
     c64 = _dist_eigh_c64()
     part["complex64"] = time.perf_counter() - t_part
+    DIRECT_TIMES.update({"dlaf_pssyevd": secs["dist"], "dlaf_pssygvd": gen_out["seconds"]["dist"],
+                         "dlaf_pcheevd": [c64["seconds"]]})
     emit("dist_eigh_main", n=n, band=b, nb=NB_MAIN, grid=[1, 1], dtype="float32",
          seconds=secs, dist_over_local=min(secs["dist"]) / min(secs["local"]),
          stage_seconds=stages, k3_launches=launches, launches=counts, readings=readings,
@@ -3450,12 +3511,17 @@ def _eig_grid_rank(grid, device) -> dict:
         band_to_tridiag_strips_kernel.launches = 0
         out["miniapps"][name] = {"out": _miniapp(argv + EIG_GRID_COMMON, mod),
                                  "k3_launches": band_to_tridiag_strips_kernel.launches}
+    # the user surfaces' four-rank checks, on these ranks (one spawn less);
+    # phase_surfaces holds them to their gates
+    t0 = time.perf_counter()
+    out["surfaces"] = _surfaces_rank(grid, device)
+    out["surfaces"]["seconds_rank"] = time.perf_counter() - t0
     return out
 
 
 def phase_dist_eigh_grid() -> None:
     """The distributed eigensolver on four gloo ranks sharing the card
-    (``spawn_grid``): eigh_dist on 2x2 at n = 4096 and on 1x4 at n = 2048
+    (``spawn_grid``): eigh_dist on 2x2 and on 1x4 at n = 2048
     in the replicated stage 2 (K3 once on every rank, d and e equal on
     every rank), and at n = 1024 on both in the pipelined one (no K3),
     eigh_gen_dist on 2x2 at n = 2048 (K6 and K3 on every rank, K1 on those
@@ -3463,10 +3529,13 @@ def phase_dist_eigh_grid() -> None:
     gathered and held to the 1x1 grid's result on rank 0 (eigenvalues
     within n eps32 max|w|) and to the gates (GRID_EIGH_BOUNDS,
     GRID_GEN_BOUNDS and the miniapps'); then the seven eigensolver
-    miniapps' distributed branches with --check."""
+    miniapps' distributed branches with --check, and on the same ranks the
+    user surfaces' four-rank checks (``_surfaces_rank``), which
+    phase_surfaces holds to their gates and reports."""
     t0 = time.perf_counter()
     outs = spawn_grid(_eig_grid_rank, (2, 2), backend="gloo", device="cuda", timeout=900)
     seconds = time.perf_counter() - t0
+    SURFACES_FOUR[:] = [r.pop("surfaces") for r in outs]
     r0 = outs[0]
     de_equal = all(len(r["de"][key]) == len(r0["de"][key]) and
                    all(bool((d == d0).all() and (e == e0).all())
@@ -3505,11 +3574,545 @@ def phase_dist_eigh_grid() -> None:
     require(all(m["out"] == "" for r in outs[1:] for m in r["miniapps"].values()),
             "only rank 0 of the miniapps prints")
 
+
+# ---------------------------------------------------------------------------
+# The user surfaces: the ScaLAPACK-style API and the C API on the 1x1 grid at
+# the main path's sizes, init, matrix files, the rest of DistMatrix and Grid,
+# miniapp_communication, and four gloo ranks on the card
+
+
+def _desc9(n: int, nb: int, ctx: int = 0) -> list:
+    """A ScaLAPACK desc[9] of an (n, n) matrix in (nb, nb) blocks."""
+    return [1, ctx, n, n, nb, nb, 0, 0, n]
+
+
+def _count_path(name: str, counts: dict) -> None:
+    for k in ("potrf_tile", "ksub_matmul_masked", "band_to_tridiag_strips"):
+        if counts[k]:
+            KERNELS.setdefault(k, {})
+            _launch_path(k, name, counts[k])
+
+
+def _surface_and_direct(surface, direct, turns):
+    """``surface`` (a ScaLAPACK entry's call) and ``direct`` (the same
+    driver on a DistMatrix) in ``turns``: seconds of each, the last result
+    of each, and the kernel launches of every call (counts set to 0 just
+    before each and read just after)."""
+    secs, last, launches = {"surface": [], "direct": []}, {}, {"surface": [], "direct": []}
+    for route in turns:
+        last.pop(route, None)
+        _counters_reset()
+        t, last[route] = _sync_s(surface if route == "surface" else direct)
+        launches[route].append(_counters())
+        secs[route].append(t)
+    for route, seq in launches.items():
+        require(all(c == seq[0] for c in seq), f"{route} launches vary: {seq}")
+    require(launches["surface"][0] == launches["direct"][0],
+            f"the surface launched what the DistMatrix call does: {launches}")
+    return secs, last, launches["surface"][0]
+
+
+def _surface_only(name, surface):
+    """One call of the eigensolver entry ``name``: its seconds beside its
+    driver's from phase_dist_eigh_main, the result, and the kernel
+    launches of the call (counts set to 0 just before it, read just after)."""
+    _counters_reset()
+    t, out = _sync_s(surface)
+    return {"surface": [t], "direct": DIRECT_TIMES[name]}, out, _counters()
+
+
+def _split(secs) -> dict:
+    best = {r: min(v) for r, v in secs.items()}
+    return {"seconds": secs, "surface_over_direct": best["surface"] / best["direct"],
+            "surface_extra_s": best["surface"] - best["direct"]}
+
+
+def _scalapack_potrf(ctx, a, a_np, uplo) -> dict:
+    """dlaf_pspotrf at n = 32768 (1x1, nb = 512) in turns with ``cholesky``
+    on a DistMatrix: the residual gate beside a factor column x 1.5, the
+    factor within ROUTE_C of cholesky's, the other triangle bit-equal to
+    the input, K1 and K6 launched."""
+    n, nb = N_MAIN, NB_MAIN
+    dm = dt.DistMatrix.from_global(a, nb, dt.Grid((1, 1)))
+    secs, last, counts = _surface_and_direct(
+        lambda: sl.dlaf_pspotrf(uplo, n, a_np, 1, 1, _desc9(n, nb, ctx), ctx),
+        lambda: dt.cholesky(dm, uplo=uplo).data, SURFACE_TURNS)
+    del dm
+    require(counts["potrf_tile"] > 0 and counts["ksub_matmul_masked"] > 0,
+            f"dlaf_pspotrf {uplo}: K1 and K6 launched: {counts}")
+    _count_path(f"dlaf_pspotrf n=32768 {uplo} (1x1)", counts)
+    tri = torch.tril if uplo == "L" else torch.triu
+    f = torch.from_numpy(last.pop("surface")).to(DEV)
+    direct = tri(last.pop("direct"))
+    kept = _other_kept(f, a, uplo)
+    deviation = factor_deviation(tri(f), direct, ROUTE_C)
+    bit_equal = torch.equal(tri(f), direct)
+    del direct
+    amax = float(a.abs().max())
+    res = _residual(f, a, uplo) / (EPS32 * amax)           # leaves tri(f) in f
+    f[:, n // 2] *= 1.5                                     # planted: a factor column x 1.5
+    planted = _residual(f, a, uplo) / (EPS32 * amax)
+    del f
+    require(kept, f"dlaf_pspotrf {uplo}: the other triangle changed")
+    require(deviation <= 1.0, f"dlaf_pspotrf {uplo}: factor deviates from cholesky's "
+            f"({deviation})")
+    require(res <= RES_K < planted, f"dlaf_pspotrf {uplo}: residual {res}, planted {planted}, "
+            f"bound {RES_K} eps32 max|A|")
+    torch.cuda.empty_cache()
+    return {**_split(secs), "launches": counts, "residual_eps_max_a": res,
+            "planted_residual_eps_max_a": planted, "factor_deviation": deviation,
+            "factor_bit_equal_to_cholesky": bit_equal, "other_triangle_kept": kept}
+
+
+def _skip_stage4_group(real):
+    """Planted fault: the middle reflector group of stage 4 skipped."""
+    gsz = dt.get_tune_parameters().bt_band_to_tridiag_hh_apply_group_size
+
+    def wrap(qc, vs, taus2, *args, **kw):
+        bad = taus2.clone()
+        g = bad.shape[0] // 2
+        bad[g:g + gsz] = 0
+        return real(qc, vs, bad, *args, **kw)
+
+    return wrap
+
+
+def _scalapack_syevd(ctx, dtype) -> dict:
+    """dlaf_pssyevd n = 8192 (dlaf_pcheevd n = 4096 for complex64) beside
+    eigh_dist's seconds on the same input, held to EIGH_BOUNDS beside a
+    planted fault: f32 one stage-4 reflector group skipped (a whole call),
+    complex64 one returned eigenvector's norm off by 1e-3."""
+    n = N_EIGH if dtype == torch.float32 else N_EIGH_C
+    name = "dlaf_pssyevd" if dtype == torch.float32 else "dlaf_pcheevd"
+    entry = getattr(sl, name)
+    a = _eigh_input(dtype)
+    a64 = a.to(torch.float64 if dtype == torch.float32 else torch.complex128)
+    w64 = torch.linalg.eigvalsh(a64)
+    a_np = a.cpu().numpy()
+    desc = _desc9(n, NB_MAIN, ctx)
+    secs, res, counts = _surface_only(name, lambda: entry("L", n, a_np, 1, 1, desc, ctx))
+    require(counts["band_to_tridiag_strips"] == 1, f"{name}: K3 once: {counts}")
+    _count_path(f"{name} n={n} (1x1)", counts)
+    w, z = (torch.from_numpy(x).to(DEV) for x in res)
+    del res
+    readings = _eigh_readings(a64, w, z, w64)
+    _eigh_gates(readings, f"{name} n={n}")
+    out = {**_split(secs), "n": n, "launches": counts, "readings": readings}
+    if dtype == torch.float32:
+        with _patched(s23, "bt_band_to_tridiag_dist", _skip_stage4_group):
+            wb, zb = (torch.from_numpy(x).to(DEV) for x in entry("L", n, a_np, 1, 1, desc, ctx))
+        gate = "res"
+        planted = _eigh_readings(a64, wb, zb, w64)
+    else:
+        gate = "orth"
+        z[:, n // 2] *= 1.001                   # planted: one eigenvector's norm off by 1e-3
+        planted = _eigh_readings(a64, w, z, w64)
+    out["planted"] = {gate: planted[gate]}
+    require(planted[gate] > EIGH_BOUNDS[gate], f"the {name} {gate} gate passes a planted "
+            f"fault ({planted[gate]})")
+    return out
+
+
+def _scalapack_sygvd(ctx) -> dict:
+    """dlaf_pssygvd n = 8192 beside eigh_gen_dist's seconds on the same input, and
+    dlaf_pssygvd_factorized with B's factor, then with one factor column
+    x 1.5, which the gates (GEN_BOUNDS) must reject."""
+    n = N_EIGH
+    g = torch.Generator(device=DEV).manual_seed(25)
+    a = gen.random_hermitian(g, n, torch.float32)
+    bm = gen.random_hermitian_positive_definite(g, n, torch.float32)
+    a64, b64 = a.double(), bm.double()
+    a_np, b_np = a.cpu().numpy(), bm.cpu().numpy()
+    desc = _desc9(n, NB_MAIN, ctx)
+    secs, res, counts = _surface_only(
+        "dlaf_pssygvd", lambda: sl.dlaf_pssygvd("L", n, a_np, b_np, 1, 1, desc, ctx))
+    require(counts["potrf_tile"] > 0 and counts["ksub_matmul_masked"] > 0 and
+            counts["band_to_tridiag_strips"] == 1, f"dlaf_pssygvd: K1, K6, K3: {counts}")
+    _count_path("dlaf_pssygvd n=8192 (1x1)", counts)
+    w, x = (torch.from_numpy(v).to(DEV) for v in res)
+    del res
+    readings = _gen_readings(a64, b64, w, x)
+    l_np = torch.linalg.cholesky(bm).cpu().numpy()
+    _counters_reset()
+    t_fact, (wf, xf) = _sync_s(lambda: sl.dlaf_pssygvd_factorized("L", n, a_np, l_np, 1, 1, desc,
+                                                                  ctx))
+    fact_counts = _counters()
+    fact = _gen_readings(a64, b64, torch.from_numpy(wf).to(DEV), torch.from_numpy(xf).to(DEV))
+    l_np[:, n // 2] *= 1.5                      # planted: a factor column x 1.5
+    wb, xb = sl.dlaf_pssygvd_factorized("L", n, a_np, l_np, 1, 1, desc, ctx)
+    planted = _gen_readings(a64, b64, torch.from_numpy(wb).to(DEV), torch.from_numpy(xb).to(DEV))
+    require(fact_counts["band_to_tridiag_strips"] == 1, f"factorized: K3 once: {fact_counts}")
+    _count_path("dlaf_pssygvd_factorized n=8192 (1x1)", fact_counts)
+    for what, r in (("dlaf_pssygvd", readings), ("dlaf_pssygvd_factorized", fact)):
+        require(r["miniapp_gate"], f"{what}: the miniapp's gates ({r})")
+        for k, bound in GEN_BOUNDS.items():
+            require(r[k] <= bound < planted[k], f"{what} {k}: reading {r[k]}, planted "
+                    f"{planted[k]}, bound {bound}")
+    return {**_split(secs), "n": n, "launches": counts, "readings": readings,
+            "factorized": {"seconds": t_fact, "launches": fact_counts, "readings": fact},
+            "planted_fault_readings": planted, "bounds": GEN_BOUNDS}
+
+
+def _scalapack_sub(ctx) -> dict:
+    """dlaf_pspotrf on the (8192, 8192) block at ia = ja = 513 of a 16384
+    matrix: the block's factor held to RES_K and its other triangle and
+    every entry outside the block bit-equal to the input."""
+    n, m, i0 = N_SUB, N_SUB_FULL, NB_MAIN
+    g = torch.Generator(device=DEV).manual_seed(31)
+    full = torch.rand((m, m), generator=g, device=DEV) - 0.5
+    spd = gen.random_hermitian_positive_definite(g, n, torch.float32)
+    full[i0:i0 + n, i0:i0 + n] = spd
+    full_np = full.cpu().numpy()
+    _counters_reset()
+    t, out = _sync_s(lambda: sl.dlaf_pspotrf("L", n, full_np, i0 + 1, i0 + 1,
+                                             _desc9(m, NB_MAIN, ctx), ctx))
+    counts = _counters()
+    require(counts["potrf_tile"] > 0 and counts["ksub_matmul_masked"] > 0,
+            f"sub-matrix dlaf_pspotrf: K1 and K6 launched: {counts}")
+    _count_path("dlaf_pspotrf n=8192 at ia=ja=513 of 16384 (1x1)", counts)
+    o = torch.from_numpy(out).to(DEV)
+    outside = all(torch.equal(_bits(o[r]), _bits(full[r])) for r in
+                  (slice(0, i0), slice(i0 + n, m))) and \
+        all(torch.equal(_bits(o[i0:i0 + n, c]), _bits(full[i0:i0 + n, c]))
+            for c in (slice(0, i0), slice(i0 + n, m)))
+    o0 = o[0, m - 1].clone()
+    o[0, m - 1] = torch.nextafter(o0, torch.tensor(float("inf"), device=DEV))
+    planted_outside = torch.equal(_bits(o[:i0]), _bits(full[:i0]))   # one entry moved
+    o[0, m - 1] = o0
+    blk = o[i0:i0 + n, i0:i0 + n].contiguous()
+    kept = _other_kept(blk, spd, "L")
+    res = _residual(blk, spd, "L") / (EPS32 * float(spd.abs().max()))
+    require(outside and kept and not planted_outside, f"sub-matrix dlaf_pspotrf: entries "
+            f"outside the factor changed (outside the block kept {outside}, other triangle "
+            f"kept {kept}, a moved entry passes {planted_outside})")
+    require(res <= RES_K, f"sub-matrix dlaf_pspotrf: residual {res}")
+    return {"n": n, "in": m, "ia": i0 + 1, "seconds": t, "launches": counts,
+            "residual_eps_max_a": res}
+
+
+def _c_ppotrf_info() -> dict:
+    """c_entry.c_ppotrf on a non-SPD block off the main diagonal (ia = 513,
+    ja = 1 of a 1024 matrix, nb = 512): info > 0 from the block's own
+    diagonal, the buffer not written."""
+    m, nb, n = 1024, 512, 512
+    a = np.zeros((m, m), dtype=np.float32, order="F")
+    np.fill_diagonal(a, 5.0)
+    a[nb:, :nb] = -np.eye(nb, dtype=np.float32)
+    before = a.copy(order="F")
+    ctx = c_entry.c_create_grid(1, 1)
+    try:
+        info = c_entry.c_ppotrf("L", n, a.ctypes.data, nb + 1, 1, _desc9(m, nb, ctx), ctx,
+                                "float32")
+    finally:
+        c_entry.c_free_grid(ctx)
+    require(info > 0 and np.array_equal(a, before), f"c_ppotrf info on a non-SPD sub-block: {info}")
+    return {"info": info, "buffer_unchanged": True}
+
+
+def phase_scalapack_main() -> None:
+    """The ScaLAPACK entries on a 1x1 grid at the main path's sizes, each
+    beside its driver on a DistMatrix (surface/direct is the metric;
+    dlaf_pspotrf in turns with cholesky, the eigensolver entries beside
+    phase_dist_eigh_main's runs of their drivers on the same inputs):
+    dlaf_pspotrf n = 32768 L and U (K1, K6), dlaf_pssyevd n = 8192
+    (K3), dlaf_pssygvd and _factorized n = 8192 (K1, K6, K3), dlaf_pcheevd
+    n = 4096 (K3 streamed), dlaf_pspotrf on a tile-aligned block (ia = ja =
+    513, n = 8192 in 16384), each held to its driver's gates beside a
+    planted fault; c_ppotrf's info on a non-SPD sub-block."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    ctx = sl.dlaf_create_grid(1, 1)
+    report = {}
+    part = {}
+    try:
+        t0 = time.perf_counter()
+        a = gen.random_hermitian_positive_definite(
+            torch.Generator(device=DEV).manual_seed(0), N_MAIN, torch.float32)
+        a_np = a.cpu().numpy()
+        for uplo in ("L", "U"):
+            report[f"pspotrf_{uplo}"] = _scalapack_potrf(ctx, a, a_np, uplo)
+        del a, a_np
+        gc.collect()
+        torch.cuda.empty_cache()
+        part["pspotrf"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        report["pssyevd"] = _scalapack_syevd(ctx, torch.float32)
+        part["pssyevd"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        report["pssygvd"] = _scalapack_sygvd(ctx)
+        part["pssygvd"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        report["pcheevd"] = _scalapack_syevd(ctx, torch.complex64)
+        part["pcheevd"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        report["pspotrf_sub"] = _scalapack_sub(ctx)
+        report["c_ppotrf_info"] = _c_ppotrf_info()
+        part["sub_and_info"] = time.perf_counter() - t0
+    finally:
+        sl.dlaf_free_grid(ctx)
+    SURFACE_TIMES["pspotrf_L"] = min(report["pspotrf_L"]["seconds"]["surface"])
+    SURFACE_TIMES["pssyevd"] = min(report["pssyevd"]["seconds"]["surface"])
+    emit("scalapack_main", grid=[1, 1], nb=NB_MAIN, dtype="float32", n_potrf=N_MAIN,
+         n_eigh=N_EIGH, turns=SURFACE_TURNS, residual_bound=RES_K, eigh_bounds=EIGH_BOUNDS,
+         part_seconds=part, **report)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _compile_c(src: str, out: Path) -> Path:
+    """A C caller of the C API, linked against the shim."""
+    lib = native.build_c_api()
+    r = subprocess.run(["gcc", "-O2", src, "-I", str(native.HERE), "-L", str(lib.parent),
+                        f"-l{native.C_API_NAME}", f"-Wl,-rpath,{lib.parent}", "-lm", "-o",
+                        str(out)], capture_output=True, text=True, timeout=300)
+    require(r.returncode == 0, f"gcc {src}: {r.stderr[-3000:]}")
+    return out
+
+
+def phase_c_api() -> None:
+    """The C API from plain C on the card: the shim built from the
+    checkout (``native.build_c_api``), the port's card driver
+    (``native/dlaf_card_driver.c``, checked in C; dlaf_pspotrf n = 32768 and
+    dlaf_pssyevd n = 8192 on a 1x1 grid, each call in a process of its own)
+    and ``tests/c_api_main.c`` unchanged as four gloo ranks sharing the card
+    (f64, n = 64, its 2x2 grid), each of which must exit 0 and print OK.
+    These six processes spend most of their time on the host (the C
+    caller's strided copies, host-staged collectives); meanwhile this
+    process runs the surfaces' own checks (``_surfaces_here``), which
+    phase_surfaces reports."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lib = native.build_c_api()
+    build_s = time.perf_counter() - t0
+    work = native.host_build_dir() / "smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    card = _compile_c(str(native.HERE / "dlaf_card_driver.c"), work / "dlaf_card_driver")
+    main_c = _compile_c(str(Path(__file__).resolve().parent / "tests" / "c_api_main.c"),
+                        work / "c_api_main")
+    env = dict(os.environ, **{c_entry.DEVICE_ENV: "cuda"})
+    port = str(_free_port())
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([str(main_c)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True, env=dict(env, RANK=str(k), LOCAL_RANK=str(k),
+                                                  WORLD_SIZE="4", LOCAL_WORLD_SIZE="4",
+                                                  MASTER_ADDR="localhost", MASTER_PORT=port,
+                                                  OMP_NUM_THREADS="1"))
+             for k in range(4)]
+    procs += [subprocess.Popen([str(card), *args, str(NB_MAIN)], stdout=subprocess.PIPE,
+                               stderr=subprocess.PIPE, text=True, env=env)
+              for args in ((str(N_MAIN), "0"), ("0", str(N_EIGH)))]
+    try:
+        t1 = time.perf_counter()
+        SURFACES_HERE.update(_surfaces_here())
+        here_s = time.perf_counter() - t1
+        outs = [p.communicate(timeout=900) for p in procs]
+        seconds = time.perf_counter() - t0
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for k, (p, (out, err)) in enumerate(zip(procs[:4], outs)):
+        require(p.returncode == 0 and "OK" in out, f"c_api_main rank {k}: exit {p.returncode} "
+                f"{out[-500:]} {err[-2000:]}")
+    lines = []
+    for p, (out, err) in zip(procs[4:], outs[4:]):
+        require(p.returncode == 0, f"card driver exit {p.returncode}: {out[-1000:]} "
+                f"{err[-3000:]}")
+        line = json.loads(out.strip().splitlines()[-1])["card_driver"]
+        for k, bound in line["bounds"].items():
+            require(line[k] <= bound, f"card driver {k} {line[k]} > {bound}")
+        require(line["ascending"] == 1, "card driver: eigenvalues not ascending")
+        lines.append(line)
+    emit("c_api", library=str(lib.name), build_seconds=build_s, card_driver=lines,
+         c_over_python={"pspotrf": lines[0]["potrf_s"] / SURFACE_TIMES["pspotrf_L"],
+                        "pssyevd": lines[1]["syevd_s"] / SURFACE_TIMES["pssyevd"]},
+         c_api_main={"ranks": 4, "backend": "gloo",
+                     "stdout_rank0": outs[0][0].strip().splitlines()},
+         seconds_all_processes=seconds, seconds_surfaces_here=here_s)
+
+
+def _surfaces_here() -> dict:
+    """The surfaces' checks in this process: miniapp_communication 1x1 with
+    --check, the eigensolver miniapp at n = 8192 writing --output-file and
+    reading it back with --input-file --check (K3 once a run),
+    from_callback / sub_matrix / set_sub_matrix at n = 32768 on 1x1
+    bit-equal to from_global and slicing, initialize(print_config=True)."""
+    part = {}
+    t0 = time.perf_counter()
+    comm = _miniapp(["-n", MINIAPP_N, "--check", "--nruns", "2"], miniapp_communication)
+    require("check: PASSED" in comm, f"miniapp_communication 1x1: {comm}")
+    part["communication_1x1"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    work = native.host_build_dir() / "smoke"
+    path = str(work / "eigensolver.npz")
+    if os.path.exists(path):
+        os.remove(path)
+    base = ["-n", MINIAPP_N, "--nruns", "1", "--nwarmups", "0"]
+    band_to_tridiag_strips_kernel.launches = 0
+    wrote = _miniapp(base + ["--check", "--output-file", path], miniapp_eigensolver)
+    k3_write = band_to_tridiag_strips_kernel.launches
+    band_to_tridiag_strips_kernel.launches = 0
+    read = _miniapp(["--input-file", path, "--check", "--nruns", "1", "--nwarmups", "0"],
+                    miniapp_eigensolver)
+    k3_read = band_to_tridiag_strips_kernel.launches
+    f = mio.MatrixFile(path)
+    require("check: PASSED" in wrote and "check: PASSED" in read and f"output: {path}" in wrote,
+            f"eigensolver miniapp --output-file / --input-file: {wrote} {read}")
+    require(f.read("/input").shape == (N_EIGH, N_EIGH) and f.read("/evals").shape == (N_EIGH,)
+            and k3_write == 1 and k3_read == 1, f"eigensolver file: K3 {k3_write}, {k3_read}")
+    _count_path("miniapp_eigensolver --input-file n=8192",
+                {"potrf_tile": 0, "ksub_matmul_masked": 0, "band_to_tridiag_strips": k3_read})
+    part["eigensolver_file"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dm1 = _dist_matrix_surfaces(N_MAIN, dt.Grid((1, 1)), DEV)
+    require(all(v for k, v in dm1.items() if k.endswith("equal")),
+            f"DistMatrix surfaces n=32768 1x1: {dm1}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    part["dist_matrix_1x1"] = time.perf_counter() - t0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        dinit.initialize(print_config=True)
+    dinit.finalize()
+    config = buf.getvalue().strip().splitlines()
+    require(config[0] == "dlaf_tpu_torch configuration:" and
+            any("eigensolver_min_band" in ln for ln in config), f"print_config: {config}")
+    return {"communication_1x1": comm.strip().splitlines(),
+            "eigensolver_file": {"wrote": wrote.strip().splitlines(),
+                                 "read": read.strip().splitlines(),
+                                 "k3_launches": [k3_write, k3_read]},
+            "dist_matrix_1x1": {"n": N_MAIN, **dm1}, "print_config": config[:3],
+            "part_seconds": part}
+
+
+def _surfaces_rank(grid, device) -> dict:
+    """One of four gloo ranks on the card: miniapp_communication on 2x2,
+    from_callback / sub_matrix / set_sub_matrix at n = 8192 bit-equal to
+    from_global and slicing, Grid.multihost (one host, and two faked ones),
+    and dlaf_pspotrf / dlaf_pssyevd on a 2x2 context at n = 4096 (rank 0
+    holds them to the 1x1 grid's on the same card)."""
+    out = {"rank": grid.rank, "coords": grid.coords}
+    out["communication"] = _miniapp(["-n", "2048", "--grid-rows", "2", "--grid-cols", "2",
+                                     "--comm-backend", "gloo", "--check", "--nruns", "2"],
+                                    miniapp_communication)
+    out["dist_matrix"] = _dist_matrix_surfaces(N_SURF_GRID, grid, device)
+    g1 = dt.Grid.multihost()
+    g2 = dt.Grid.multihost(host=f"host{grid.rank % 2}")
+    out["multihost"] = {"one_host": [g1.grid_size, g1.coords],
+                        "two_hosts": [g2.grid_size, g2.coords]}
+    n = N_GRID_LINE
+    g = torch.Generator(device=device).manual_seed(GRID_SURF_SEED)
+    spd = gen.random_hermitian_positive_definite(g, n, torch.float32)
+    h = gen.random_hermitian(g, n, torch.float32)
+    ctx = sl.dlaf_create_grid(2, 2)
+    try:
+        t, f = _sync_s(lambda: sl.dlaf_pspotrf("L", n, spd.cpu().numpy(), 1, 1,
+                                               _desc9(n, NB_MAIN, ctx), ctx))
+        t2, (w, z) = _sync_s(lambda: sl.dlaf_pssyevd("L", n, h.cpu().numpy(), 1, 1,
+                                                     _desc9(n, NB_MAIN, ctx), ctx))
+    finally:
+        sl.dlaf_free_grid(ctx)
+    out["seconds"] = {"pspotrf": t, "pssyevd": t2}
+    out["sums"] = [float(np.abs(f).sum()), float(np.abs(w).sum())]
+    if grid.rank == 0:
+        one = dt.Grid((1, 1))
+        ref = dt.cholesky(dt.DistMatrix.from_global(spd, NB_MAIN, one), uplo="L").data
+        fl = torch.from_numpy(f).to(device)
+        got = torch.tril(fl)
+        dev_ = factor_deviation(got, torch.tril(ref), ROUTE_C)
+        got[n - 1, 0] += 1e-3 * max(1.0, float(ref[n - 1, 0].abs()))
+        out["potrf"] = {"deviation": dev_, "other_kept": _other_kept(fl, spd, "L"),
+                        "planted_deviation": factor_deviation(got, torch.tril(ref), ROUTE_C)}
+        w1 = dt.eigvalsh_dist(dt.DistMatrix.from_global(h, NB_MAIN, one))
+        wt, zt = torch.from_numpy(w).to(device), torch.from_numpy(z).to(device)
+        r = _eigh_readings(h.double(), wt, zt, torch.linalg.eigvalsh(h.double()))
+        r["eig_vs_1x1"] = float((wt - w1).abs().max()) / (n * EPS32 * float(w1.abs().max()))
+        out["syevd"] = r
+    return out
+
+
+def _dist_matrix_surfaces(n, grid, device) -> dict:
+    """from_callback, sub_matrix and set_sub_matrix at order n on ``grid``
+    against from_global and slicing (every comparison bit for bit)."""
+    g = torch.Generator(device=device).manual_seed(GRID_SURF_SEED + 1)
+    a = torch.rand((n, n), generator=g, device=device) - 0.5
+    a_np = a.cpu().numpy()
+    nb = NB_MAIN
+    ref = dt.DistMatrix.from_global(a, nb, grid)
+    t, cb = _sync_s(lambda: dt.DistMatrix.from_callback(lambda idx: a_np[idx], (n, n), nb, grid,
+                                                        torch.float32, device=device))
+    r = {"from_callback_seconds": t, "from_callback_equal": torch.equal(cb.data, ref.data)}
+    del cb
+    (oi, oj), (m2, n2) = SUB_OFFSET, (n - 1000, n - 1536)
+    rows, cols = slice(oi * nb, oi * nb + m2), slice(oj * nb, oj * nb + n2)
+    t, sub = _sync_s(lambda: ref.sub_matrix((oi, oj), (m2, n2)))
+    want = dt.DistMatrix.from_global(a[rows, cols].contiguous(), nb, grid)
+    r.update(sub_matrix_seconds=t, sub_matrix_equal=torch.equal(sub.data, want.data),
+             sub_matrix_global_equal=torch.equal(sub.to_global(), a[rows, cols]))
+    del want
+    s2 = torch.rand((m2, n2), generator=g, device=device)
+    t, upd = _sync_s(lambda: ref.set_sub_matrix(dt.DistMatrix.from_global(s2, nb, grid),
+                                                (oi, oj)))
+    a[rows, cols] = s2
+    r.update(set_sub_matrix_seconds=t,
+             set_sub_matrix_equal=torch.equal(upd.data, dt.DistMatrix.from_global(a, nb,
+                                                                                   grid).data))
+    return r
+
+
+def phase_surfaces() -> None:
+    """The surfaces on four gloo ranks sharing the card (``_surfaces_rank``,
+    run on phase_dist_eigh_grid's ranks: miniapp_communication 2x2,
+    from_callback / sub_matrix / set_sub_matrix at n = 8192, Grid.multihost,
+    the ScaLAPACK entries on a 2x2 context at n = 4096) held to their
+    gates, reported with the checks phase_c_api ran in this process
+    (``_surfaces_here``)."""
+    outs = SURFACES_FOUR
+    require(len(outs) == 4, f"the four ranks' surfaces ran: {len(outs)} results")
+    r0 = outs[0]
+    require("check: PASSED" in r0["communication"] and
+            all(r["communication"] == "" for r in outs[1:]), "miniapp_communication 2x2")
+    for r in outs:
+        require(all(v for k, v in r["dist_matrix"].items() if k.endswith("equal")),
+                f"DistMatrix surfaces rank {r['rank']}: {r['dist_matrix']}")
+        require(r["sums"] == r0["sums"], "the 2x2 ScaLAPACK results differ between ranks")
+    one = sorted(tuple(r["multihost"]["one_host"][1]) for r in outs)
+    two = {r["rank"]: r["multihost"]["two_hosts"] for r in outs}
+    require(all(tuple(r["multihost"]["one_host"][0]) == (4, 1) for r in outs) and
+            one == [(k, 0) for k in range(4)], f"Grid.multihost on one host: {one}")
+    # two hosts {0, 2} and {1, 3}: column q holds host q's ranks
+    require(all(tuple(v[0]) == (2, 2) for v in two.values()) and
+            [tuple(two[k][1]) for k in range(4)] == [(0, 0), (0, 1), (1, 0), (1, 1)],
+            f"Grid.multihost on two hosts: {two}")
+    require(r0["potrf"]["other_kept"] and r0["potrf"]["deviation"] <= 1.0 <
+            r0["potrf"]["planted_deviation"], f"dlaf_pspotrf 2x2: {r0['potrf']}")
+    require(r0["syevd"]["eig_vs_1x1"] <= 1.0 and r0["syevd"]["miniapp_gate"] and
+            all(r0["syevd"][k] <= b for k, b in GRID_EIGH_BOUNDS.items()),
+            f"dlaf_pssyevd 2x2: {r0['syevd']}")
+    emit("surfaces", **SURFACES_HERE,
+         communication_2x2=r0["communication"].strip().splitlines(),
+         four_ranks={"n_dist_matrix": N_SURF_GRID, "n_scalapack": N_GRID_LINE,
+                     "seconds_rank": [r["seconds_rank"] for r in outs],
+                     "dist_matrix": [r["dist_matrix"] for r in outs],
+                     "multihost": [r["multihost"] for r in outs],
+                     "seconds": [r["seconds"] for r in outs], "pspotrf": r0["potrf"],
+                     "pssyevd": r0["syevd"]})
+
+
 PHASES = (phase_device, phase_k1, phase_k2, phase_main, phase_miniapp, phase_info,
           phase_k6, phase_dist_main, phase_dist_grid, phase_k3, phase_eigh_main, phase_eigh_c64, phase_miniapp_eigensolver, phase_k45,
           phase_eigh_large_main, phase_eigh_large_cases, phase_blas_main, phase_eigh_gen_main,
           phase_stage_miniapps, phase_dist_blas_main, phase_dist_blas_grid,
-          phase_dist_eigh_main, phase_dist_eigh_grid)
+          phase_dist_eigh_main, phase_dist_eigh_grid, phase_scalapack_main, phase_c_api,
+          phase_surfaces)
 
 
 def main() -> None:

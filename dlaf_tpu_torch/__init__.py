@@ -1,29 +1,31 @@
 """dlaf_tpu_torch — the PyTorch/CUDA port of dlaf_tpu for one NVIDIA H100.
 
 The JAX package :mod:`dlaf_tpu` is the reference; this package mirrors its
-module paths. Ported so far: the whole local API end to end: the Cholesky
-factorization (``potrf``, ``potrf_info``), the BLAS-3 (``trsm``, ``trmm``,
-``hemm``, ``herk``, ``gemm``), the two-stage Hermitian eigensolver
-(``eigh``, ``eigvalsh``) and its memory-planned form for contract-scale
-problems (``eigh_large``, ``eigvalsh_large``), and the generalized
-eigensolver (``hegst``, ``eigh_gen``), with hand-written Hopper kernels
-for the TPU kernels on their paths (``ops/kernels``, sources in
-``csrc/``); the local auxiliaries (``algos/norm.py``,
-``algos/permutations.py``), the tuning parameters, the matrix generators,
-eleven miniapps (Cholesky, eigensolver, triangular solver and
-multiplication, gen_to_std, generalized eigensolver, and the five stage
-miniapps) and ``kernel_runner``. The distributed data model (``dist``,
-``comm`` on ``torch.distributed``, ``DistMatrix`` with ``transpose`` and
-``symmetrize``), the distributed Cholesky (``cholesky``,
-``cholesky_info``, with kernel K6), the distributed eigensolver
-(``eigh_dist``, ``eigvalsh_dist``, ``eigh_gen_dist``, kernel K3 on every
-rank's replicated stage 2) and the distributed BLAS-3
-(``triangular_solver``, ``general_multiplication``,
+module paths and keeps its surface (``dlaf_tpu/__init__.py``). Ported: the
+whole local API (the Cholesky factorization ``potrf``/``potrf_info``, the
+BLAS-3 ``trsm``, ``trmm``, ``hemm``, ``herk``, ``gemm``, the two-stage
+Hermitian eigensolver ``eigh``/``eigvalsh``, its memory-planned form
+``eigh_large``/``eigvalsh_large``, and the generalized eigensolver
+``hegst``/``eigh_gen``), with hand-written Hopper kernels for the TPU
+kernels on their paths (``ops/kernels``, sources in ``csrc/``); the local
+auxiliaries (``algos/norm.py``, ``algos/permutations.py``), the tuning
+parameters, the matrix generators, all twelve miniapps and
+``kernel_runner``. The distributed data model (``dist``, ``comm`` on
+``torch.distributed``, ``DistMatrix``, ``Grid`` with ``Grid.multihost``),
+the distributed Cholesky (``cholesky``, ``cholesky_info``, with kernel
+K6), the distributed eigensolver (``eigh_dist``, ``eigvalsh_dist``,
+``eigh_gen_dist``, kernel K3 on every rank's replicated stage 2) and the
+distributed BLAS-3 (``triangular_solver``, ``general_multiplication``,
 ``hermitian_multiplication``, ``triangular_multiplication``,
 ``generalized_to_standard_dist``, ``max_norm``, ``permute``) run one
-process per rank of a process ``Grid``. The package never imports JAX.
+process per rank of a process ``Grid``. The user surfaces: the
+ScaLAPACK-style API (``api/scalapack.py``), the C API (``native/``: its
+header ``dlaf_tpu_c.h`` and the shim that :func:`native.build_c_api`
+builds), ``init`` (``initialize``/``finalize``/``ScopedInitializer``),
+matrix files and printing (``matrix/io.py``, ``matrix/printing.py``).
+The package never imports JAX.
 """
-from . import types
+from . import dist, ops, types
 from .algos.cholesky import cholesky, cholesky_info
 from .algos.eigensolver.band2tridiag import band_to_tridiag_auto
 from .algos.eigensolver.dist_driver import eigh_dist, eigh_gen_dist, eigvalsh_dist
@@ -45,7 +47,9 @@ from .ops.core import ct
 from .tune import (TuneParameters, from_dict, get_tune_parameters,
                    reset_tune_parameters, set_tune_parameters)
 
-__all__ = ["types", "potrf", "potrf_info", "trsm", "trmm", "hemm", "herk", "gemm",
+__version__ = "0.1.0"
+
+__all__ = ["dist", "ops", "types", "potrf", "potrf_info", "trsm", "trmm", "hemm", "herk", "gemm",
            "eigh", "eigvalsh", "eigh_gen", "hegst", "eigh_large", "eigvalsh_large",
            "cholesky", "cholesky_info", "eigh_dist", "eigvalsh_dist", "eigh_gen_dist",
            "triangular_solver", "general_multiplication",

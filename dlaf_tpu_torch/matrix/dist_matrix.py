@@ -5,21 +5,22 @@ Counterpart of :class:`dlaf_tpu.matrix.dist_matrix.DistMatrix` (reference
 (P, Q, lm, ln) holds every shard; here each rank holds its own local shard
 (lm, ln) on an explicit device, with the ``Distribution`` and the
 :class:`~dlaf_tpu_torch.comm.mesh.Grid`. Every rank of the grid makes the
-same calls (``from_global``, ``to_global``, ``diagonal``, ``transpose``
-and ``symmetrize`` are collective where the grid has more than one rank).
-
-Not ported yet (ROADMAP Queue 1 item 7, no algorithm calls them):
-``from_callback``, ``retiled``, ``sub_matrix`` and ``set_sub_matrix``.
+same calls (``from_global``, ``to_global``, ``diagonal``, ``transpose``,
+``symmetrize``, ``sub_matrix`` and ``set_sub_matrix`` are collective where
+the grid has more than one rank; ``from_callback`` and ``retiled`` are
+not).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 from ..comm import collectives as coll
-from ..comm.mesh import Grid
+from ..comm.launch import rank_device
+from ..comm.mesh import COL_AXIS, ROW_AXIS, Grid
 from ..dist import Distribution, gather_from_shards, local_shard
 
 
@@ -28,6 +29,19 @@ def global_indices(lt: int, nb: int, n_ax: int, r: int, device=None) -> torch.Te
     coordinate ``r`` holds along an axis of ``n_ax`` ranks."""
     tiles = torch.arange(lt, device=device) * n_ax + r
     return tiles.repeat_interleave(nb) * nb + torch.arange(nb, device=device).repeat(lt)
+
+
+def _below(lt: int, nb: int, n_ax: int, r: int, limit: int) -> int:
+    """How many of the local indices of :func:`global_indices` lie below
+    the global index ``limit``. Global indices grow with the local index,
+    so these are the first ones."""
+    return sum(max(0, min(nb, limit - (t * n_ax + r) * nb)) for t in range(lt))
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.empty(0, np.dtype(dtype))).dtype
 
 
 @dataclasses.dataclass
@@ -56,6 +70,40 @@ class DistMatrix:
                 ap.diagonal()[k:].fill_(1)
             a = ap
         return cls(local_shard(a, d, grid.coords), d, grid)
+
+    @classmethod
+    def from_callback(cls, cb, size, nb: int, grid: Grid, dtype, pad_identity: bool = False,
+                      device=None) -> "DistMatrix":
+        """This rank's shard, built without the global array:
+        ``cb((row_slice, col_slice))`` returns the global region's values
+        (a numpy array or tensor), and each rank calls it only for the
+        tiles it holds (the multi-host construction path; the reference
+        reads user-owned local memory so, ``src/c_api/utils.cpp:68``).
+        Padding is zero, and ``pad_identity`` puts ones on the padded
+        diagonal, as :meth:`from_global`. ``dtype`` is a torch or numpy
+        dtype; ``device`` defaults to this rank's card
+        (``cuda:{rank % device_count}``)."""
+        m, n = size
+        d = Distribution((m, n), (nb, nb), grid.grid_size)
+        P, Q = grid.grid_size
+        p, q = grid.coords
+        lmt, lnt = d.max_local_nr_tiles
+        if device is None:
+            device = rank_device("cuda", grid.rank)
+        out = torch.zeros((lmt * nb, lnt * nb), dtype=_torch_dtype(dtype), device=device)
+        for lt in range(lmt):
+            gr = (lt * P + p) * nb
+            if gr >= m:
+                break
+            for lc in range(lnt):
+                gc = (lc * Q + q) * nb
+                if gc >= n:
+                    break
+                blk = torch.as_tensor(cb((slice(gr, min(gr + nb, m)), slice(gc, min(gc + nb, n)))))
+                out[lt * nb:lt * nb + blk.shape[0], lc * nb:lc * nb + blk.shape[1]] = blk
+        if pad_identity:
+            _pad_diagonal_ones(out, d, grid)
+        return cls(out, d, grid)
 
     def to_global(self) -> torch.Tensor:
         """The whole (m, n) matrix as a new tensor on this rank's device
@@ -144,6 +192,82 @@ class DistMatrix:
             out[r0:r1] = torch.where(keep, self.data[r0:r1], out[r0:r1])
         return DistMatrix(out, self.dist, self.grid)
 
+    def retiled(self, tile_size) -> "DistMatrix":
+        """Finer-tiled metadata view of the same shard (reference
+        ``retiledSubPipeline``, ``matrix/matrix.h:377-432``): no data
+        moves, only ``dist.tile`` changes."""
+        return DistMatrix(self.data, self.dist.retiled(tile_size), self.grid)
+
+    def sub_matrix(self, tile_offset, size, pad_identity: bool = False) -> "DistMatrix":
+        """The tile-aligned sub-matrix of element ``size`` that starts at
+        global tile ``tile_offset``, as a new canonical DistMatrix with
+        src rank (0, 0) (reference ``MatrixRef``, ``matrix/matrix_ref.h:34``).
+
+        The owner of the sub-matrix's tile (i, j) is the owner of the
+        parent's tile (i + oti, j + otj): the parent's shifted by a constant
+        rank offset on each axis, and the local tile index by a constant of
+        the rank. So each rank slices out the block its receiver needs and
+        one ``ring_shift`` per axis brings it there (JAX: one ``ppermute``
+        per axis, then the slice). The sub-matrix's padding is zero, with
+        ones on its padded diagonal for ``pad_identity``."""
+        oti, otj = tile_offset
+        m2, n2 = size
+        self._check_square_origin("sub_matrix")
+        nb = self.block_size
+        P, Q = self.grid.grid_size
+        p, q = self.grid.coords
+        newdist = Distribution((m2, n2), self.dist.block_size, self.grid.grid_size)
+        lmt2, lnt2 = newdist.max_local_nr_tiles
+        # my block goes to rank ((p - oti) % P, (q - otj) % Q), whose first
+        # sub tile is my local tile ((p - oti) % P + oti) // P
+        r0 = ((p - oti) % P + oti) // P * nb
+        c0 = ((q - otj) % Q + otj) // Q * nb
+        lm, ln = self.data.shape
+        blk = self.data.new_zeros((lmt2 * nb, lnt2 * nb))
+        rows, cols = max(0, min(lm - r0, lmt2 * nb)), max(0, min(ln - c0, lnt2 * nb))
+        blk[:rows, :cols] = self.data[r0:r0 + rows, c0:c0 + cols]
+        blk = coll.ring_shift(blk, ROW_AXIS, self.grid, shift=-oti)
+        blk = coll.ring_shift(blk, COL_AXIS, self.grid, shift=-otj)
+        blk[_below(lmt2, nb, P, p, m2):] = 0
+        blk[:, _below(lnt2, nb, Q, q, n2):] = 0
+        if pad_identity:
+            _pad_diagonal_ones(blk, newdist, self.grid)
+        return DistMatrix(blk, newdist, self.grid)
+
+    def set_sub_matrix(self, sub: "DistMatrix", tile_offset) -> "DistMatrix":
+        """This matrix with ``sub``'s (m2, n2) values written at global tile
+        ``tile_offset`` (the inverse of :meth:`sub_matrix`), as a new
+        DistMatrix; ``sub``'s padding is not read. Each rank sends its
+        shard of ``sub`` to the owner of the same tiles in the parent, one
+        ``ring_shift`` per axis, and the owner copies it in."""
+        oti, otj = tile_offset
+        m2, n2 = sub.dist.size
+        self._check_square_origin("set_sub_matrix")
+        if sub.dist.block_size != self.dist.block_size or sub.dist.src_rank != (0, 0):
+            raise ValueError(f"set_sub_matrix needs sub's blocks {self.dist.block_size} and "
+                             f"src_rank (0, 0), got {sub.dist.block_size}, {sub.dist.src_rank}")
+        nb = self.block_size
+        P, Q = self.grid.grid_size
+        p, q = self.grid.coords
+        s = coll.ring_shift(sub.data, ROW_AXIS, self.grid, shift=oti)
+        s = coll.ring_shift(s, COL_AXIS, self.grid, shift=otj)
+        # the parent rows and columns that hold sub's values, and where the
+        # block from rank ((p - oti) % P, (q - otj) % Q) starts among them
+        lm, ln = self.data.shape
+        lmt, lnt = lm // nb, ln // nb
+        rlo, rhi = _below(lmt, nb, P, p, oti * nb), _below(lmt, nb, P, p, oti * nb + m2)
+        clo, chi = _below(lnt, nb, Q, q, otj * nb), _below(lnt, nb, Q, q, otj * nb + n2)
+        r0 = ((p - oti) % P + oti) // P * nb
+        c0 = ((q - otj) % Q + otj) // Q * nb
+        out = self.data.clone()
+        out[rlo:rhi, clo:chi] = s[rlo - r0:rhi - r0, clo - c0:chi - c0]
+        return DistMatrix(out, self.dist, self.grid)
+
+    def _check_square_origin(self, what: str) -> None:
+        if self.dist.block_size[0] != self.dist.block_size[1] or self.dist.src_rank != (0, 0):
+            raise ValueError(f"{what} needs square blocks and src_rank (0, 0), got "
+                             f"{self.dist.block_size}, {self.dist.src_rank}")
+
     def src_rank_t(self):
         return (self.dist.src_rank[1] % self.grid.grid_size[0],
                 self.dist.src_rank[0] % self.grid.grid_size[1])
@@ -155,6 +279,19 @@ class DistMatrix:
     @property
     def local_shape(self):
         return tuple(self.data.shape)
+
+
+def _pad_diagonal_ones(shard: torch.Tensor, d: Distribution, grid: Grid) -> None:
+    """Ones on this rank's entries of the padded diagonal of ``d`` (global
+    (g, g) for min(m, n) <= g < min of the padded sizes), in place."""
+    nb = d.block_size[0]
+    P, Q = grid.grid_size
+    p, q = grid.coords
+    g = torch.arange(min(d.size), min(d.padded_size), device=shard.device)
+    t = g // nb
+    own = (t % P == p) & (t % Q == q)
+    g, t = g[own], t[own]
+    shard[(t // P) * nb + g % nb, (t // Q) * nb + g % nb] = 1
 
 
 # rows of the blocks symmetrize's combine works through (its boolean mask

@@ -6,6 +6,8 @@ max|V^H V - I| <= 500 n eps and max|A V - V diag(w)| <= 1000 n eps
 max(1, max|A|). Local: ``eigh``. Distributed (one process per rank):
 ``eigh_dist`` on a block-cyclic ``DistMatrix`` of block size ``-b``
 (kernel K3 in every rank's stage 2 on the card); only rank 0 prints.
+``--input-file``/``--input-dataset`` read A from a file, ``--output-file``
+writes A, /evals and /evecs (``matrix/io.py``).
 
 Local: ``python -m dlaf_tpu_torch.miniapps.miniapp_eigensolver -n 4096 --check``
 (``--device cpu`` runs the plain versions of the kernels).
@@ -40,11 +42,11 @@ def check_eigh(a: torch.Tensor, w: torch.Tensor, v: torch.Tensor, dtype):
 
 def main(argv=None):
     args = options.parser("miniapp_eigensolver").parse_args(argv)
-    n = args.matrix_size
     dtype = options.dtype_of(args)
     with options.process_grid(args) as grid:
         device = options.device_of(args)
-        a = gen.random_hermitian(torch.Generator(device=device).manual_seed(0), n, dtype)
+        a = options.load_input(args, lambda: gen.random_hermitian(
+            torch.Generator(device=device).manual_seed(0), args.matrix_size, dtype), device)
         if grid is None:
             fn = functools.partial(dt.eigh, a, uplo=args.uplo, band=args.band_size)
             get = lambda out: out   # noqa: E731
@@ -57,7 +59,12 @@ def main(argv=None):
             ok, orth, res = check_eigh(a, w, v, dtype)
             return ok, f"orth {orth:.2e} res {res:.2e}"
 
-        options.run_timed(args, fn, 0, check_fn=check)
+        out = options.run_timed(args, fn, 0, check_fn=check)
+        if args.output_file:
+            # reference --output-file contract (miniapp_eigensolver.cpp:169-180):
+            # the input matrix under --input-dataset plus /evals and /evecs
+            w, v = get(out)
+            options.write_output(args, **{args.input_dataset: a, "/evals": w, "/evecs": v})
 
 
 if __name__ == "__main__":

@@ -6,8 +6,9 @@ rank, block size ``-b``; only rank 0 prints) of a random hermitian A and a
 random hermitian positive definite B (K1 factors B, K3 runs the
 eigensolver's stage 2 on the card in f32); wall time per solve, and with
 ``--check`` the JAX miniapp's gates, max|A X - B X diag(w)| <= 2000 n eps
-max(1, max|A|) and max|X^H B X - I| <= 2000 n eps. ``--input-file`` waits
-for ``matrix/io.py``.
+max(1, max|A|) and max|X^H B X - I| <= 2000 n eps. ``--input-file``
+reads A and B (``--input-dataset-a``/``-b``), ``--output-file`` writes
+them with /evals and /evecs (``matrix/io.py``).
 
 Local: ``python -m dlaf_tpu_torch.miniapps.miniapp_gen_eigensolver -n 4096 --check``
 Distributed: ``torchrun --nproc-per-node 4 -m dlaf_tpu_torch.miniapps.miniapp_gen_eigensolver
@@ -39,14 +40,20 @@ def check_eigh_gen(a: torch.Tensor, b: torch.Tensor, w: torch.Tensor, x: torch.T
 
 
 def main(argv=None):
-    args = options.parser("miniapp_gen_eigensolver").parse_args(argv)
-    n = args.matrix_size
+    p = options.parser("miniapp_gen_eigensolver")
+    # reference miniapp_gen_eigensolver.cpp:279-280 dataset names
+    p.add_argument("--input-dataset-a", default="/input-a")
+    p.add_argument("--input-dataset-b", default="/input-b")
+    args = p.parse_args(argv)
     dtype = options.dtype_of(args)
     with options.process_grid(args) as grid:
         device = options.device_of(args)
-        a = gen.random_hermitian(torch.Generator(device=device).manual_seed(0), n, dtype)
-        b = gen.random_hermitian_positive_definite(
-            torch.Generator(device=device).manual_seed(1), n, dtype)
+        a = options.load_input(args, lambda: gen.random_hermitian(
+            torch.Generator(device=device).manual_seed(0), args.matrix_size, dtype), device,
+            args.input_dataset_a)
+        b = options.load_input(args, lambda: gen.random_hermitian_positive_definite(
+            torch.Generator(device=device).manual_seed(1), args.matrix_size, dtype), device,
+            args.input_dataset_b)
         if grid is None:
             fn = functools.partial(dt.eigh_gen, a, b, uplo=args.uplo, band=args.band_size)
             get = lambda out: out   # noqa: E731
@@ -61,7 +68,12 @@ def main(argv=None):
             ok, res, borth = check_eigh_gen(a, b, w, x, dtype)
             return ok, f"res {res:.2e} B-orth {borth:.2e}"
 
-        options.run_timed(args, fn, 0, check_fn=check)
+        out = options.run_timed(args, fn, 0, check_fn=check)
+        if args.output_file:
+            # reference contract (miniapp_gen_eigensolver.cpp:208-211)
+            w, x = get(out)
+            options.write_output(args, **{args.input_dataset_a: a, args.input_dataset_b: b,
+                                          "/evals": w, "/evecs": x})
 
 
 if __name__ == "__main__":

@@ -7,7 +7,8 @@ stage 1 of the eigensolver on a random hermitian A, band ``--band-size``
 block size is the band, as the JAX miniapp distributes it; GFlop/s with
 add = mul = 2 n^3 / 3, and with ``--check`` the eigenvalues of the band
 matrix against those of A, max|ev - ref| / max(1, max|ref|) <= 500 n eps,
-both in the working precision on the run's device.
+both in the working precision on the run's device. ``--input-file`` reads
+A, ``--output-file`` writes A and /band (``matrix/io.py``).
 
 Run: ``python -m dlaf_tpu_torch.miniapps.miniapp_reduction_to_band -n 8192 --band-size 128 --check``
 (distributed: under ``torchrun --nproc-per-node P*Q`` with ``--grid-rows P --grid-cols Q``)
@@ -29,14 +30,15 @@ from . import options
 
 def main(argv=None):
     args = options.parser("miniapp_reduction_to_band").parse_args(argv)
-    n = args.matrix_size
     band = args.band_size or min(args.block_size, 128)
-    if n % band:
-        raise SystemExit("matrix-size must be a multiple of band-size")
     dtype = options.dtype_of(args)
     with options.process_grid(args) as grid:
         device = options.device_of(args)
-        a = gen.random_hermitian(torch.Generator(device=device).manual_seed(0), n, dtype)
+        a = options.load_input(args, lambda: gen.random_hermitian(
+            torch.Generator(device=device).manual_seed(0), args.matrix_size, dtype), device)
+        n = args.matrix_size
+        if n % band:
+            raise SystemExit("matrix-size must be a multiple of band-size")
         if grid is None:
             fn = functools.partial(reduction_to_band, a, band)
             get = lambda out: out[0]   # noqa: E731
@@ -52,7 +54,11 @@ def main(argv=None):
             err = float((ev - ref).abs().max()) / max(float(ref.abs().max()), 1.0)
             return err <= 500 * n * eps(dtype), f"eig err {err:.2e}"
 
-        options.run_timed(args, fn, flops, check_fn=check)
+        out = options.run_timed(args, fn, flops, check_fn=check)
+        if args.output_file:
+            # reference contract (miniapp_reduction_to_band.cpp:184-185): the
+            # input matrix plus the reduced (band + reflectors) matrix
+            options.write_output(args, **{args.input_dataset: a, "/band": get(out)})
 
 
 if __name__ == "__main__":

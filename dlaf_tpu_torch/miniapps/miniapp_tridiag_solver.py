@@ -9,7 +9,8 @@ tridiagonal matrix
 solve, and with ``--check`` max|Q^T Q - I| <= 500 n eps and
 max|T Q - Q diag(lambda)| <= 500 n eps. The tridiagonal is real: for
 ``--type c``/``z`` it is made in the matching real type (f32/f64).
-``--input-file`` waits for ``matrix/io.py``.
+``--input-file`` reads d and e from an (n, 2) dataset (default
+/tridiag), as the JAX miniapp does.
 
 Run: ``python -m dlaf_tpu_torch.miniapps.miniapp_tridiag_solver -n 8192 --check``
 (distributed: under ``torchrun --nproc-per-node P*Q`` with ``--grid-rows P --grid-cols Q``)
@@ -18,6 +19,7 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 from dlaf_tpu_torch.algos.eigensolver.dist_stage23 import gather_columns
@@ -30,14 +32,27 @@ from . import options
 
 
 def main(argv=None):
-    args = options.parser("miniapp_tridiag_solver").parse_args(argv)
-    n = args.matrix_size
+    p = options.parser("miniapp_tridiag_solver")
+    p.set_defaults(input_dataset="/tridiag")  # reference default dataset
+    args = p.parse_args(argv)
     dtype = real_dtype(options.dtype_of(args))
     with options.process_grid(args) as grid:
         device = options.device_of(args)
-        d = gen.random_general(torch.Generator(device=device).manual_seed(0), (n,), dtype)
-        e = gen.random_general(torch.Generator(device=device).manual_seed(1), (max(n - 1, 1),),
-                               dtype)[:n - 1]
+        if args.input_file:
+            # reference layout (miniapp_tridiag_solver.cpp:109): an (n, 2) real
+            # matrix, column 0 = diagonal, column 1 = off-diagonal (last unused)
+            from dlaf_tpu_torch.matrix.io import MatrixFile
+            td = torch.from_numpy(np.ascontiguousarray(
+                MatrixFile(args.input_file).read(args.input_dataset)))
+            args.matrix_size = td.shape[0]
+            d = td[:, 0].to(device, dtype)
+            e = td[:-1, 1].to(device, dtype)
+        else:
+            n = args.matrix_size
+            d = gen.random_general(torch.Generator(device=device).manual_seed(0), (n,), dtype)
+            e = gen.random_general(torch.Generator(device=device).manual_seed(1),
+                                   (max(n - 1, 1),), dtype)[:n - 1]
+        n = args.matrix_size
         if grid is not None and dc_dist_supported(n, grid.size):
             fn = functools.partial(tridiag_eigh_dist, d, e, grid)
             get = lambda out: (out[0][:n], gather_columns(out[1], grid)[:n, :n])   # noqa: E731

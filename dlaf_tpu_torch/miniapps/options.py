@@ -7,15 +7,19 @@ parseable ``CSVData-2`` row, field for field as the JAX miniapps print it.
 
 The device is explicit (``--device``, default ``cuda``): a run asked for
 the card fails where there is none, it never moves to the CPU.
-``--input-file`` / ``--output-file`` (which need ``matrix/io.py``) come
-with a later slice.
+``--input-file`` / ``--input-dataset`` load the input from a file of
+:mod:`dlaf_tpu_torch.matrix.io` (``.h5``/``.hdf5`` in the reference's
+HDF5 layout, else ``.npz``), and ``--output-file`` writes the input and
+the results there, as the JAX miniapps do (files are interchangeable
+between the two packages).
 
 A grid larger than 1x1 (``--grid-rows``/``--grid-cols``) is a distributed
 run: one process per rank, started by ``torchrun --nproc-per-node P*Q``
 (or already joined in a process group, as ``comm.launch.spawn_grid``
 does). Rank r runs on ``cuda:{r % device_count}``; the process group's
-backend is ``--comm-backend`` (default nccl on CUDA, gloo on the CPU; gloo
-for several ranks on one card). Only rank 0 prints.
+backend is ``--comm-backend``, by default ``init.default_backend``'s: nccl
+where every rank has a card of its own, gloo on the CPU or for several
+ranks on one card. Only rank 0 prints.
 """
 from __future__ import annotations
 
@@ -24,11 +28,13 @@ import contextlib
 import os
 import time
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from ..comm.launch import rank_device
 from ..comm.mesh import Grid
+from ..init import default_backend
 
 
 def parser(name: str) -> argparse.ArgumentParser:
@@ -53,11 +59,46 @@ def parser(name: str) -> argparse.ArgumentParser:
                         "plain versions of the kernels)")
     p.add_argument("--comm-backend", choices=["nccl", "gloo"], default=None,
                    help="torch.distributed backend of a distributed run (default: nccl "
-                        "on cuda, gloo on cpu)")
+                        "where every rank has a card, gloo on cpu or for several ranks "
+                        "on one card)")
     p.add_argument("--trace", default=None, metavar="DIR",
                    help="write a torch.profiler trace of the timed runs to "
                         "DIR/trace.json (chrome trace format)")
+    p.add_argument("--input-file", default=None, metavar="FILE",
+                   help="load the input matrix from FILE instead of "
+                        "generating it (.h5/.hdf5 in the reference's HDF5 "
+                        "layout, else .npz; reference "
+                        "miniapp_eigensolver.cpp --input-file)")
+    p.add_argument("--input-dataset", default="/input",
+                   help="dataset name inside --input-file (default /input)")
+    p.add_argument("--output-file", default=None, metavar="FILE",
+                   help="write the input matrix and results of the last "
+                        "run to FILE (reference --output-file contract: "
+                        "input dataset + /evals + /evecs)")
     return p
+
+
+def load_input(args, default_gen, device, dataset=None) -> torch.Tensor:
+    """Input matrix: the ``--input-file`` dataset ``dataset`` (default
+    ``--input-dataset``) if a file is given (cast to ``--type``, size from
+    the file; every rank reads it), else ``default_gen()``. Returns a
+    tensor on ``device`` and sets ``args.matrix_size`` to its order."""
+    if not args.input_file:
+        return default_gen()
+    from ..matrix.io import MatrixFile
+    a = MatrixFile(args.input_file).read(dataset or args.input_dataset)
+    args.matrix_size = a.shape[0]
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype_of(args))
+
+
+def write_output(args, **datasets) -> None:
+    """``--output-file``: write the (gathered) datasets; rank 0 writes and
+    prints the path."""
+    if _distributed() and dist.get_rank() != 0:
+        return
+    from ..matrix.io import MatrixFile
+    MatrixFile(args.output_file).write(**datasets)
+    print(f"output: {args.output_file}")
 
 
 def dtype_of(args) -> torch.dtype:
@@ -97,8 +138,7 @@ def process_grid(args):
         if world != P * Q:
             raise ValueError(f"grid {P}x{Q} needs {P * Q} ranks, have {world}: run it "
                              f"under torchrun --nproc-per-node {P * Q}")
-        backend = args.comm_backend or \
-            ("nccl" if torch.device(args.device).type == "cuda" else "gloo")
+        backend = args.comm_backend or default_backend(torch.device(args.device).type, world)
         dist.init_process_group(backend, init_method="env://")
     try:
         if args.comm_backend is not None and dist.get_backend() != args.comm_backend:

@@ -272,3 +272,89 @@ def tridiag_cases(cases, grid, device):
             res = d.numpy(), e.numpy(), sweeps(vs), sweeps(taus)
         out[key] = res if grid.rank == 0 else None
     return out
+
+
+def _surface_case(kind, arrays, kw, grid, device):
+    """One case of :func:`surface_cases`."""
+    from dlaf_tpu_torch.matrix import io as mio
+    from dlaf_tpu_torch.matrix import printing
+
+    nb = kw.get("nb")
+
+    def dm(x, pad=False):
+        return DistMatrix.from_global(torch.from_numpy(x), nb, grid, pad_identity=pad,
+                                      device=device)
+
+    if kind == "from_callback":
+        a = arrays[0]
+        r = DistMatrix.from_callback(lambda idx: a[idx], a.shape, nb, grid, a.dtype,
+                                     pad_identity=kw["pad"], device=device)
+        ref = dm(a, kw["pad"])
+        return {"shard": r.data.numpy(), "from_global_equal": torch.equal(r.data, ref.data)}
+    if kind == "retiled":
+        m = dm(arrays[0])
+        r = m.retiled(kw["tile"])
+        return {"shard": r.data.numpy(), "tile": r.dist.tile, "same": r.data is m.data,
+                "size": r.dist.size}
+    if kind == "sub_matrix":
+        r = dm(arrays[0]).sub_matrix(kw["offset"], kw["size"], pad_identity=kw["pad"])
+        return {"shard": r.data.numpy(), "global": r.to_global().numpy(),
+                "size": r.dist.size}
+    if kind == "set_sub_matrix":
+        r = dm(arrays[0]).set_sub_matrix(dm(arrays[1]), kw["offset"])
+        return {"shard": r.data.numpy(), "global": r.to_global().numpy()}
+    if kind == "read_dist":
+        r = mio.MatrixFile(kw["path"]).read_dist(kw["name"], nb, grid, device=device)
+        return {"shard": r.data.numpy(), "global": r.to_global().numpy()}
+    if kind == "print":
+        buf = io.StringIO()
+        printing.print_numpy(dm(arrays[0]), "m", file=buf)
+        printing.print_csv(dm(arrays[0]), file=buf)
+        return buf.getvalue()
+    if kind == "multihost":
+        from dlaf_tpu_torch.comm.mesh import Grid
+        g = Grid.multihost(kw["intra"], host=kw["hosts"][grid.rank])
+        # a collective over each axis group checks that the subgroups work
+        s = coll.allreduce_sum(torch.tensor([float(grid.rank)]), ROW_AXIS, g)
+        return {"grid_size": g.grid_size, "coords": g.coords,
+                "table": [[g.rank_of(p, q) for q in range(g.grid_size[1])]
+                          for p in range(g.grid_size[0])],
+                "row_sum": float(s[0])}
+    if kind == "communication":
+        from dlaf_tpu_torch.miniapps import miniapp_communication
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            miniapp_communication.main(kw["argv"])
+        return buf.getvalue()
+    raise ValueError(kind)
+
+
+def surface_cases(cases, grid, device):
+    """{key: this rank's result} of each ``(key, kind, arrays, kw)``, and
+    this rank's coordinates under ``"coords"``."""
+    out = {"coords": grid.coords, "rank": grid.rank}
+    for key, kind, arrays, kw in cases:
+        out[key] = _surface_case(kind, arrays, kw, grid, device)
+    return out
+
+
+def scalapack_cases(cases, grid, device):
+    """Each ``(key, grid_size, entry, args, kw)``: the ScaLAPACK entry
+    ``entry`` of ``dlaf_tpu_torch.api.scalapack`` called with ``args`` and
+    ``kw`` on a new context of ``grid_size`` over this process group (the
+    spawned ``grid`` only brings the ranks up), with the tune parameters
+    of the JAX tests; returns {key: result} on every rank."""
+    from dlaf_tpu_torch.api import scalapack as sl
+    out = {}
+    dt.set_tune_parameters(eigensolver_min_band=8, default_block_size=16)
+    try:
+        for key, gs, entry, args, kw in cases:
+            ctx = sl.dlaf_create_grid(*gs)
+            try:
+                uplo, n, rest = args[0], args[1], args[2:]
+                out[key] = getattr(sl, entry)(uplo, n, *rest, ctx=ctx, device=device, **kw)
+            finally:
+                sl.dlaf_free_grid(ctx)
+    finally:
+        dt.reset_tune_parameters()
+    return out
