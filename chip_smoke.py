@@ -135,6 +135,19 @@ n = 8192, ``from_callback``/``sub_matrix``/``set_sub_matrix`` bit-equal to
 ``Grid.multihost``, the ScaLAPACK entries on a 2x2 context and
 ``initialize(print_config=True)``.
 
+The collective-schedule checker (``dlaf_tpu_torch.debug``): inside the two
+existing spawns of four gloo ranks, ``cholesky`` L and U at n = 8192
+(K1 on the ranks that hold diagonal tiles, K6 on every rank) and
+``eigh_dist`` on 2x2 at n = 2048 in the replicated stage 2 (K3 once a
+rank) run once more under ``record_schedule(check=True)``: no finding and
+the same schedule length on every rank, each checked run's seconds beside
+the unchecked run of the same call. On the 2x2 ranks three planted
+divergences must come back as their findings within seconds: one rank's
+extra ``allreduce_sum`` after ``cholesky`` (``while-collective``), one
+rank skipping one step's panel ``bcast`` (``cond-divergent``) and one
+rank's shard swap of ``DistMatrix.transpose`` posted after an extra group
+collective (``p2p-unpaired``).
+
 Every phase prints one JSON line. Any failed check raises, so the exit code
 is not 0; nothing catches it. The last lines are the card's
 ``nvidia-smi`` name and power limit, one JSON line with the kernels, and
@@ -181,6 +194,7 @@ from dlaf_tpu_torch.algos.eigensolver.tridiag_dc_dist import tridiag_eigh_dist  
 from dlaf_tpu_torch.algos.eigensolver import red2band as r2b  # noqa: E402
 from dlaf_tpu_torch.algos.eigensolver.tridiag_dc import tridiag_eigh  # noqa: E402
 from dlaf_tpu_torch.comm.launch import spawn_grid  # noqa: E402
+from dlaf_tpu_torch.comm.mesh import ROW_AXIS  # noqa: E402
 from dlaf_tpu_torch.matrix import generators as gen  # noqa: E402
 from dlaf_tpu_torch.matrix.dist_matrix import global_indices  # noqa: E402
 from dlaf_tpu_torch.api.local import _pad_zero, _tri_operand  # noqa: E402
@@ -210,7 +224,7 @@ from dlaf_tpu_torch.ops.kernels.bt_apply import (  # noqa: E402
     bt_apply_fused, bt_apply_fused_ref, bt_apply_fused_split_ref, bt_apply_group,
     bt_apply_group_ref, bt_apply_group_split_ref)
 from dlaf_tpu_torch.types import eps  # noqa: E402
-from dlaf_tpu_torch import init as dinit, native  # noqa: E402
+from dlaf_tpu_torch import debug, init as dinit, native  # noqa: E402
 from dlaf_tpu_torch.api import scalapack as sl  # noqa: E402
 from dlaf_tpu_torch.matrix import io as mio  # noqa: E402
 from dlaf_tpu_torch.miniapps import miniapp_communication  # noqa: E402
@@ -424,6 +438,11 @@ GRID_MINIAPP = ["-n", "4096", "-b", "512", "--grid-rows", "2", "--grid-cols", "2
 EIG_GRID_CASES = [((2, 2), 2048, "replicated"), ((2, 2), 1024, "pipelined"),
                   ((1, 4), 2048, "replicated"), ((1, 4), 1024, "pipelined")]
 N_GEN_GRID, EIG_GRID_SEED = 2048, 41
+# the checker's planted divergences on the 2x2 ranks (expected finding, the
+# most seconds it may take to come back)
+PLANT_FINDINGS = {"extra_allreduce": "while-collective", "skipped_bcast": "cond-divergent",
+                  "p2p_epoch": "p2p-unpaired"}
+PLANT_SECONDS = 10.0
 # the grid's gates, in eigh's units (orth in n eps32; res, eig in n eps32
 # max|A|): the distributed merge of the D&C keeps orthogonality less well
 # than the local one, in JAX's as in the port's (on an H100 the replicated
@@ -2142,10 +2161,82 @@ def phase_dist_main() -> None:
     torch.cuda.empty_cache()
 
 
+def _checked(fn) -> dict:
+    """``fn()`` under the collective-schedule checker: the findings, this
+    rank's recorded calls (group collectives, send/receives) and the
+    seconds, the device synchronised on both ends."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with debug.record_schedule(check=True) as rec:
+        fn()
+        torch.cuda.synchronize()
+    return {"seconds": time.perf_counter() - t0, "findings": rec.findings, "ops": len(rec.ops),
+            "group": sum(op.prim != "sendrecv" and not op.local for op in rec.ops),
+            "p2p": sum(op.prim == "sendrecv" and not op.local for op in rec.ops)}
+
+
+def _plant_extra_allreduce(dm, grid):
+    f = dt.cholesky(dm, uplo="L")
+    if grid.rank == 1:
+        coll.allreduce_sum(f.data[:1, :1], None, grid)
+
+
+def _plant_skipped_bcast(dm, grid):
+    real, calls = coll.bcast, [0]
+
+    def skipping(x, owner, axis, g):
+        calls[0] += 1
+        return x if calls[0] == 3 else real(x, owner, axis, g)
+
+    if grid.rank == 1:
+        coll.bcast = skipping
+    try:
+        dt.cholesky(dm, uplo="L")
+    finally:
+        coll.bcast = real
+
+
+def _plant_p2p_epoch(dm, grid):
+    if grid.rank == 1:
+        coll.allreduce_sum(dm.data[:1, :1], ROW_AXIS, grid)
+    dm.transpose()
+
+
+def _checks_and_plants(a, nb, grid) -> dict:
+    """cholesky L and U unchecked, then under the checker (its K1/K6
+    launches counted), then the planted divergences, on one rank of the
+    2x2 grid."""
+    out = {}
+    for uplo in ("L", "U"):
+        dm = dt.DistMatrix.from_global(a, nb, grid)
+        unchecked_s = _timed_cholesky(dm, uplo)[0]
+        potrf_tile.launches = ksub_matmul_masked.launches = 0
+        r = _checked(lambda: dt.cholesky(dm, uplo=uplo))
+        out[uplo] = {**r, "unchecked_seconds": unchecked_s, "potrf_tile": potrf_tile.launches,
+                     "ksub_matmul_masked": ksub_matmul_masked.launches}
+    for name, plant in (("extra_allreduce", _plant_extra_allreduce),
+                        ("skipped_bcast", _plant_skipped_bcast),
+                        ("p2p_epoch", _plant_p2p_epoch)):
+        dm = dt.DistMatrix.from_global(a, nb, grid)
+        out[name] = _checked(lambda: plant(dm, grid))
+    return out
+
+
+def _require_checked(runs, what: str) -> None:
+    """A checked run (one entry a rank, in rank order) found nothing, with
+    the same number of group collectives on every rank (send/receives may
+    differ: the diagonal ranks of a square-grid transpose post none)."""
+    for rank, r in enumerate(runs):
+        require(r["findings"] == [], f"{what}: rank {rank} findings {r['findings']}")
+    require(len({r["group"] for r in runs}) == 1 and runs[0]["group"] > 0,
+            f"{what}: group collectives a rank {[r['group'] for r in runs]}")
+
+
 def _grid_rank(n, nb, grid, device) -> dict:
     """One rank of phase_dist_grid, in a process of its own: cholesky L and
-    U on the 2x2 grid, cholesky_info on a planted pivot and the distributed
-    miniapp; rank 0 then holds the gathered factors against the 1x1 grid's
+    U on the 2x2 grid, cholesky_info on a planted pivot, the distributed
+    miniapp, and cholesky under the collective-schedule checker beside its
+    planted divergences (``_checks_and_plants``); rank 0 then holds the gathered factors against the 1x1 grid's
     on the same card."""
     a = gen.random_hermitian_positive_definite(
         torch.Generator(device=device).manual_seed(GRID_SEED), n, torch.float32)
@@ -2164,6 +2255,7 @@ def _grid_rank(n, nb, grid, device) -> dict:
     out["info"] = int(dt.cholesky_info(dt.DistMatrix.from_global(bad, nb, grid))[1])
     del bad
     out["miniapp"] = _miniapp(GRID_MINIAPP)
+    out["checked"] = _checks_and_plants(a, nb, grid)
     if grid.rank == 0:
         for uplo, tri in (("L", torch.tril), ("U", torch.triu)):
             g = gathered[uplo]
@@ -2177,13 +2269,41 @@ def _grid_rank(n, nb, grid, device) -> dict:
     return out
 
 
+def _dist_grid_checks(checked) -> None:
+    """phase_dist_grid's checked runs and plants, one entry a rank in rank
+    order."""
+    for uplo in "LU":
+        _require_checked([r[uplo] for r in checked], f"checked grid cholesky {uplo}")
+        require(all(r[uplo]["ksub_matmul_masked"] > 0 for r in checked) and
+                sum(r[uplo]["potrf_tile"] for r in checked) > 0,
+                f"checked grid cholesky {uplo}: K1/K6 launches {[r[uplo] for r in checked]}")
+    for name, kind in PLANT_FINDINGS.items():
+        for rank, r in enumerate(checked):
+            f = r[name]["findings"]
+            require(len(f) == 1 and f[0].startswith(kind + ":") and
+                    f == checked[0][name]["findings"],
+                    f"planted {name}: rank {rank} found {f}, not one {kind}")
+            require(r[name]["seconds"] < PLANT_SECONDS,
+                    f"planted {name}: rank {rank} took {r[name]['seconds']} s")
+    emit("collective_check", where="dist_grid", n=N_GRID, nb=NB_MAIN, grid=[2, 2],
+         checked={u: [{k: r[u][k] for k in ("seconds", "unchecked_seconds", "ops", "group", "p2p",
+                                             "potrf_tile", "ksub_matmul_masked")}
+                      for r in checked] for u in "LU"},
+         plants={name: {"finding": checked[0][name]["findings"][0],
+                        "seconds": [r[name]["seconds"] for r in checked]}
+                 for name in PLANT_FINDINGS})
+
+
 def phase_dist_grid() -> None:
     """``cholesky`` on a 2x2 grid of four gloo ranks that share the card
     (NCCL takes one rank per card), at n = 8192, nb = 512, L and U: K6
     launched on every rank, the gathered factor within ROUTE_C of the 1x1
     grid's entry by entry (shown one entry moved by 1e-3), the other
     triangle bit-equal to the input, ``cholesky_info`` on a planted pivot,
-    and the distributed miniapp with ``--check``, all under ``spawn_grid``."""
+    and the distributed miniapp with ``--check``, all under ``spawn_grid``;
+    then L and U again unchecked and under the collective-schedule checker
+    (no finding, 48 group collectives a rank), and the checker's three
+    planted divergences (``collective_check``)."""
     t0 = time.perf_counter()
     outs = spawn_grid(functools.partial(_grid_rank, N_GRID, NB_MAIN), (2, 2), backend="gloo",
                       device="cuda", timeout=900)
@@ -2202,6 +2322,7 @@ def phase_dist_grid() -> None:
                 f"grid {uplo}: deviation from the 1x1 factor {r0[uplo]}")
     require("check: PASSED" in r0["miniapp"], f"distributed miniapp: {r0['miniapp']}")
     require(all(r["miniapp"] == "" for r in outs[1:]), "only rank 0 of the miniapp prints")
+    _dist_grid_checks([r.pop("checked") for r in outs])
     emit("dist_grid", n=N_GRID, nb=NB_MAIN, grid=[2, 2], backend="gloo", ranks_on_one_card=4,
          seconds=seconds, info=r0["info"], bad_index=GRID_BAD,
          ranks=[{k: v for k, v in r.items() if k != "miniapp"} for r in outs],
@@ -3484,6 +3605,21 @@ def _eig_grid_rank(grid, device) -> dict:
                 n * EPS32 * float(refs[n].abs().max()))
             out["compare"][key] = r
         del v, vg
+    # the first case (2x2, replicated stage 2) once more unchecked (warm),
+    # then under the checker
+    gs, n, mode = EIG_GRID_CASES[0]
+    a = gen.random_hermitian(torch.Generator(device=device).manual_seed(EIG_GRID_SEED), n,
+                             torch.float32)
+    dt.set_tune_parameters(band_to_tridiag_dist_mode=mode)
+    try:
+        unchecked_s = _sync_s(lambda: dt.eigh_dist(
+            dt.DistMatrix.from_global(a, NB_MAIN, grids[gs])))[0]
+        band_to_tridiag_strips_kernel.launches = 0
+        r = _checked(lambda: dt.eigh_dist(dt.DistMatrix.from_global(a, NB_MAIN, grids[gs])))
+    finally:
+        dt.reset_tune_parameters()
+    out["checked"] = {**r, "key": f"{gs[0]}x{gs[1]}-n{n}-{mode}", "unchecked_seconds": unchecked_s,
+                      "band_to_tridiag_strips": band_to_tridiag_strips_kernel.launches}
     n = N_GEN_GRID
     g = torch.Generator(device=device).manual_seed(EIG_GRID_SEED + 1)
     a = gen.random_hermitian(g, n, torch.float32)
@@ -3531,7 +3667,10 @@ def phase_dist_eigh_grid() -> None:
     GRID_GEN_BOUNDS and the miniapps'); then the seven eigensolver
     miniapps' distributed branches with --check, and on the same ranks the
     user surfaces' four-rank checks (``_surfaces_rank``), which
-    phase_surfaces holds to their gates and reports."""
+    phase_surfaces holds to their gates and reports. The 2x2 replicated
+    case also runs once more unchecked and once under the
+    collective-schedule checker (``collective_check``: no finding, K3 once
+    a rank)."""
     t0 = time.perf_counter()
     outs = spawn_grid(_eig_grid_rank, (2, 2), backend="gloo", device="cuda", timeout=900)
     seconds = time.perf_counter() - t0
@@ -3569,6 +3708,14 @@ def phase_dist_eigh_grid() -> None:
         require(gl["ksub_matmul_masked"] > 0 and gl["band_to_tridiag_strips"] == 1,
                 f"grid rank {r['rank']} gen: {gl}")
     require(sum(r["gen_launches"]["potrf_tile"] for r in outs) > 0, "grid gen: no K1 launch")
+    checked = [r["checked"] for r in outs]
+    _require_checked(checked, f"checked grid eigh_dist {checked[0]['key']}")
+    require(all(r["band_to_tridiag_strips"] == 1 for r in checked),
+            f"checked grid eigh_dist: K3 launches {[r['band_to_tridiag_strips'] for r in checked]}")
+    emit("collective_check", where="dist_eigh_grid", case=checked[0]["key"], nb=NB_MAIN,
+         first_call_seconds=[r["seconds"][checked[0]["key"]] for r in outs],
+         checked=[{k: r[k] for k in ("seconds", "unchecked_seconds", "ops", "group", "p2p",
+                                     "band_to_tridiag_strips")} for r in checked])
     for name, m in r0["miniapps"].items():
         require("check: PASSED" in m["out"], f"distributed miniapp {name}: {m['out']}")
     require(all(m["out"] == "" for r in outs[1:] for m in r["miniapps"].values()),

@@ -23,6 +23,11 @@ ScaLAPACK-style API (``api/scalapack.py``), the C API (``native/``: its
 header ``dlaf_tpu_c.h`` and the shim that :func:`native.build_c_api`
 builds), ``init`` (``initialize``/``finalize``/``ScopedInitializer``),
 matrix files and printing (``matrix/io.py``, ``matrix/printing.py``).
+The collective-schedule checker (``debug.py``: ``check_collective_safety``,
+``collective_schedule``, ``assert_same_schedule``, ``record_schedule``)
+runs a distributed call on every rank and compares the collectives the
+ranks issue, on CPU ranks (``spawn_grid(fn, grid, device="cpu")``) or on
+the card; with it every module of ``dlaf_tpu`` is ported.
 The package never imports JAX.
 """
 from . import dist, ops, types

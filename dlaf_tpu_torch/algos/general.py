@@ -56,6 +56,9 @@ def _a_panel(a, kt: int, nb: int, grid: Grid, a_mode: str):
     if a_mode.startswith("tri"):
         t0, t1 = (td, lmt) if lower else (0, tg)
         if t0 >= t1:
+            # none here; take part in the (empty) broadcast all the same, so
+            # that every rank issues the same collectives in the same order
+            _op_panel(a, kt, t0, t0, nb=nb, trans="N", grid=grid)
             return None
         ap = _op_panel(a, kt, t0, t1, nb=nb, trans="N", grid=grid)
         if tg > td:

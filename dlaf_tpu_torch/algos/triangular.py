@@ -79,10 +79,10 @@ def _dist_trsm_left(a, b, *, grid: Grid, nb: int, nrt: int, leaf_nb: int, lower:
         t0, t1 = (_first_local_tile(kt + 1, P, p), tend) if forward else \
             (0, _first_local_tile(kt, P, p))
         if t0 >= t1:
-            # nothing left here; for T and C this rank still takes part in
-            # the row broadcast down its grid column (t0, t1 differ by p)
-            if trans != "N":
-                _op_panel(a, kt, t0, t0, nb=nb, trans=trans, grid=grid)
+            # nothing left here; this rank still takes part in the panel's
+            # broadcast (an empty one for N), so that every rank issues the
+            # same collectives in the same order
+            _op_panel(a, kt, t0, t0, nb=nb, trans=trans, grid=grid)
             continue
         pan = _op_panel(a, kt, t0, t1, nb=nb, trans=trans, grid=grid)
         b[t0 * nb:t1 * nb].addmm_(pan, xrow, alpha=-1)

@@ -17,13 +17,25 @@ The gloo backend is the one the caller chose for CUDA tensors on one card
 (NCCL refuses two ranks on one GPU): there each call copies the tensor to
 the host, runs the collective there and copies the result back. Nothing
 picks a backend or swaps one for another.
+
+Each public function first reports its call to the schedule recorder of
+:mod:`dlaf_tpu_torch.debug` while one is active (``_recorder``; None
+otherwise), before its size-1 early return, so that identity calls are
+recorded too. The two process-wide calls, :func:`allgather_object` and
+:func:`barrier`, live here for the same reason.
 """
 from __future__ import annotations
+
+from typing import TYPE_CHECKING
 
 import torch
 import torch.distributed as dist
 
-from .mesh import Grid
+if TYPE_CHECKING:       # mesh.py calls allgather_object
+    from .mesh import Grid
+
+# the active schedule recorder (dlaf_tpu_torch.debug), or None
+_recorder = None
 
 
 def _via_host(t: torch.Tensor, group) -> bool:
@@ -59,6 +71,8 @@ def bcast(x: torch.Tensor, owner: int, axis: str, grid: Grid) -> torch.Tensor:
     ``axis`` (reference ``schedule_bcast_send/recv``,
     ``kernels/broadcast.h:39``). On the other ranks ``x`` gives only the
     shape, dtype and device; they get a new tensor."""
+    if _recorder is not None:
+        _recorder.group("bcast", axis, grid, x, owner=grid.axis_ranks(axis)[owner])
     if grid.axis_size(axis) == 1:
         return x
     buf = _send_buffer(x, grid.axis_index(axis) == owner)
@@ -68,6 +82,8 @@ def bcast(x: torch.Tensor, owner: int, axis: str, grid: Grid) -> torch.Tensor:
 
 def bcast2d(x: torch.Tensor, owner_rc, grid: Grid) -> torch.Tensor:
     """Broadcast from the single rank ``owner_rc`` = (p, q) to the whole grid."""
+    if _recorder is not None:
+        _recorder.group("bcast2d", None, grid, x, owner=grid.rank_of(*owner_rc))
     if grid.size == 1:
         return x
     src = grid.rank_of(*owner_rc)
@@ -77,6 +93,9 @@ def bcast2d(x: torch.Tensor, owner_rc, grid: Grid) -> torch.Tensor:
 
 
 def _allreduce(x: torch.Tensor, axis, grid: Grid, op) -> torch.Tensor:
+    if _recorder is not None:
+        _recorder.group("allreduce_sum" if op == dist.ReduceOp.SUM else "allreduce_max",
+                        axis, grid, x)
     n = grid.size if axis is None else grid.axis_size(axis)
     if n == 1:
         return x
@@ -106,6 +125,8 @@ def allgather_tiles(x: torch.Tensor, axis, grid: Grid) -> torch.Tensor:
     """Gather ``x`` over ``axis`` (None: the whole grid, in rank order) ->
     a new leading dimension, in coordinate order (p for ``ROW_AXIS``, q for
     ``COL_AXIS``)."""
+    if _recorder is not None:
+        _recorder.group("allgather_tiles", axis, grid, x)
     if axis is None:
         if grid.size == 1:
             return x[None]
@@ -149,6 +170,9 @@ def sendrecv(x: torch.Tensor, dst, src, shape) -> torch.Tensor:
     of None is left out: nothing is sent (``dst``), or nothing is received
     and the result is zeros (``src``), as at the ends of a JAX
     ``ppermute`` that is not a ring."""
+    if _recorder is not None:
+        dst, src = _recorder.p2p(x, dst, src, shape)
+
     def run(send, recv):
         ops = ([] if dst is None else [dist.P2POp(dist.isend, send, dst)]) + \
             ([] if src is None else [dist.P2POp(dist.irecv, recv, src)])
@@ -158,7 +182,10 @@ def sendrecv(x: torch.Tensor, dst, src, shape) -> torch.Tensor:
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
 
-    return _exchanged(x, torch.empty(shape, dtype=x.dtype, device=x.device), run)
+    out = _exchanged(x, torch.empty(shape, dtype=x.dtype, device=x.device), run)
+    if _recorder is not None:
+        _recorder.p2p_done()
+    return out
 
 
 def ring_shift(x: torch.Tensor, axis: str, grid: Grid, shift: int = 1) -> torch.Tensor:
@@ -169,6 +196,8 @@ def ring_shift(x: torch.Tensor, axis: str, grid: Grid, shift: int = 1) -> torch.
     size-1 axis and for a shift that is a multiple of the axis size."""
     n = grid.axis_size(axis)
     if shift % n == 0:
+        if _recorder is not None:   # recorded as the sendrecv it stands for, with no peer
+            _recorder.p2p(x, None, None, x.shape)
         return x
     ranks = grid.axis_ranks(axis)
     i = grid.axis_index(axis)
@@ -180,7 +209,32 @@ def all_to_all_slots(x: torch.Tensor, grid: Grid) -> torch.Tensor:
     per global rank (D = P·Q, rank order); returns (D, ...) whose slot r
     came from rank r (one ``all_to_all_single`` of equal splits, so that
     gloo needs no variable sizes). The identity on a 1x1 grid."""
+    if _recorder is not None:
+        _recorder.group("all_to_all_slots", None, grid, x)
     if grid.size == 1:
         return x
     out = torch.empty_like(x, memory_format=torch.contiguous_format)
     return _exchanged(x, out, lambda send, recv: dist.all_to_all_single(recv, send))
+
+
+def allgather_object(obj) -> list:
+    """Every rank's ``obj`` (picklable) over the default process group, in
+    rank order (``dist.all_gather_object``); ``[obj]`` without a process
+    group of more than one rank."""
+    if _recorder is not None:
+        _recorder.group("allgather_object", None, None, None)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world == 1:
+        return [obj]
+    out = [None] * world
+    dist.all_gather_object(out, obj)
+    return out
+
+
+def barrier() -> None:
+    """Wait for every rank of the default process group (``dist.barrier``);
+    nothing without a process group of more than one rank."""
+    if _recorder is not None:
+        _recorder.group("barrier", None, None, None)
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()

@@ -21,6 +21,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch.distributed as dist
 
+from . import collectives
+
 ROW_AXIS = "r"  # indexes the grid row coordinate p (tiles i with i % P == p)
 COL_AXIS = "c"  # indexes the grid column coordinate q
 
@@ -90,12 +92,7 @@ class Grid:
             raise ValueError(f"intra_axis must be {ROW_AXIS!r} or {COL_AXIS!r}, "
                              f"got {intra_axis!r}")
         host = socket.gethostname() if host is None else host
-        world = dist.get_world_size() if dist.is_initialized() else 1
-        names = [None] * world
-        if world > 1:
-            dist.all_gather_object(names, host)
-        else:
-            names = [host]
+        names = collectives.allgather_object(host)
         by_host: dict = {}
         for r, h in enumerate(names):
             by_host.setdefault(h, []).append(r)

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..comm import collectives as coll
 from ..comm.launch import rank_device
 from ..comm.mesh import Grid
 from ..init import default_backend
@@ -158,8 +159,7 @@ def sync(device: torch.device) -> None:
     ``waitLocalTiles`` + ``MPI_Barrier``)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    if _distributed():
-        dist.barrier()
+    coll.barrier()
 
 
 def run_timed(args, fn, flop_count, check_fn=None):
