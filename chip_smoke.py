@@ -146,7 +146,10 @@ divergences must come back as their findings within seconds: one rank's
 extra ``allreduce_sum`` after ``cholesky`` (``while-collective``), one
 rank skipping one step's panel ``bcast`` (``cond-divergent``) and one
 rank's shard swap of ``DistMatrix.transpose`` posted after an extra group
-collective (``p2p-unpaired``).
+collective (``p2p-unpaired``); and a planted stall, rank 0 reaching a sum
+over the grid 3 s late against a checker timeout cut to 2 s, must come
+back as three identical ``stalled ... for ranks [0]`` findings on every
+rank, one from each rank that waited.
 
 Every phase prints one JSON line. Any failed check raises, so the exit code
 is not 0; nothing catches it. The last lines are the card's
@@ -443,6 +446,10 @@ N_GEN_GRID, EIG_GRID_SEED = 2048, 41
 PLANT_FINDINGS = {"extra_allreduce": "while-collective", "skipped_bcast": "cond-divergent",
                   "p2p_epoch": "p2p-unpaired"}
 PLANT_SECONDS = 10.0
+# the planted stall (tests/torch_debug_ranks.py's timings): rank 0 reaches
+# a sum over the grid STALL_S late against a checker timeout of
+# STALL_TIMEOUT; ranks 1, 2 and 3 each report their wait
+STALL_TIMEOUT, STALL_S = 2.0, 3.0
 # the grid's gates, in eigh's units (orth in n eps32; res, eig in n eps32
 # max|A|): the distributed merge of the D&C keeps orthogonality less well
 # than the local one, in JAX's as in the port's (on an H100 the replicated
@@ -2202,6 +2209,12 @@ def _plant_p2p_epoch(dm, grid):
     dm.transpose()
 
 
+def _plant_stall(dm, grid):
+    if grid.rank == 0:
+        time.sleep(STALL_S)
+    coll.allreduce_sum(dm.data[:1, :1], None, grid)
+
+
 def _checks_and_plants(a, nb, grid) -> dict:
     """cholesky L and U unchecked, then under the checker (its K1/K6
     launches counted), then the planted divergences, on one rank of the
@@ -2219,6 +2232,11 @@ def _checks_and_plants(a, nb, grid) -> dict:
                         ("p2p_epoch", _plant_p2p_epoch)):
         dm = dt.DistMatrix.from_global(a, nb, grid)
         out[name] = _checked(lambda: plant(dm, grid))
+    real, debug.TIMEOUT_S = debug.TIMEOUT_S, STALL_TIMEOUT
+    try:
+        out["stall"] = _checked(lambda: _plant_stall(dm, grid))
+    finally:
+        debug.TIMEOUT_S = real
     return out
 
 
@@ -2285,13 +2303,24 @@ def _dist_grid_checks(checked) -> None:
                     f"planted {name}: rank {rank} found {f}, not one {kind}")
             require(r[name]["seconds"] < PLANT_SECONDS,
                     f"planted {name}: rank {rank} took {r[name]['seconds']} s")
+    stall = checked[0]["stall"]["findings"]
+    for rank, r in enumerate(checked):
+        require(r["stall"]["findings"] == stall and len(stall) == 3 and
+                all(f.startswith("stalled:") and "for ranks [0]" in f for f in stall) and
+                sorted(int(f.split()[2]) for f in stall) == [1, 2, 3],
+                f"planted stall: rank {rank} found {r['stall']['findings']}, not one "
+                "stalled for ranks [0] from each of ranks 1, 2, 3")
+        require(r["stall"]["seconds"] < STALL_S + 2 * STALL_TIMEOUT,
+                f"planted stall: rank {rank} took {r['stall']['seconds']} s")
     emit("collective_check", where="dist_grid", n=N_GRID, nb=NB_MAIN, grid=[2, 2],
          checked={u: [{k: r[u][k] for k in ("seconds", "unchecked_seconds", "ops", "group", "p2p",
                                              "potrf_tile", "ksub_matmul_masked")}
                       for r in checked] for u in "LU"},
          plants={name: {"finding": checked[0][name]["findings"][0],
                         "seconds": [r[name]["seconds"] for r in checked]}
-                 for name in PLANT_FINDINGS})
+                 for name in PLANT_FINDINGS},
+         stall={"timeout_s": STALL_TIMEOUT, "late_s": STALL_S, "findings": stall,
+                "seconds": [r["stall"]["seconds"] for r in checked]})
 
 
 def phase_dist_grid() -> None:
@@ -2302,8 +2331,8 @@ def phase_dist_grid() -> None:
     triangle bit-equal to the input, ``cholesky_info`` on a planted pivot,
     and the distributed miniapp with ``--check``, all under ``spawn_grid``;
     then L and U again unchecked and under the collective-schedule checker
-    (no finding, 48 group collectives a rank), and the checker's three
-    planted divergences (``collective_check``)."""
+    (no finding, 48 group collectives a rank), the checker's three
+    planted divergences and its planted stall (``collective_check``)."""
     t0 = time.perf_counter()
     outs = spawn_grid(functools.partial(_grid_rank, N_GRID, NB_MAIN), (2, 2), backend="gloo",
                       device="cuda", timeout=900)

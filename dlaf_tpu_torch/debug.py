@@ -45,9 +45,10 @@ publishes the op's fingerprint (a small tuple) to the process group's
 key-value store and waits for every other rank's; before each send or
 receive it publishes that half and waits for its counterpart. The end of
 ``fn`` is itself a fingerprinted step, so a rank that returns meets a rank
-that issues one op more. Each step's verdict, "go" or "stop", is settled
-once by the store's compare-and-set, and a rank enters the real call only
-on "go". A divergence therefore stops every rank in step, within the time
+that issues one op more. Each step's verdict, "go", "stop" or a stall's
+(its timeout and the ranks whose records were missing), is settled once by
+the store's compare-and-set, and a rank enters the real call only on
+"go". A divergence therefore stops every rank in step, within the time
 the ranks take to reach their next step, instead of hanging the group.
 "stop" raises :class:`CollectiveDivergence` inside ``fn``, which the
 checker turns into a finding. The waits are on the store, not on a side
@@ -67,8 +68,11 @@ list. Each names the ranks, the op index and the call sites:
     dtype, or a send and its receive on shape or dtype;
   * ``p2p-unpaired``: a send or receive whose peer went on to its next group
     collective (or returned) without posting the counterpart;
-  * ``stalled``: a rank waited ``TIMEOUT_S`` seconds at one step for another
-    (a rank blocked outside the recorded calls, or computing that long).
+  * ``stalled``: a rank's wait at one step outlasted ``TIMEOUT_S`` (a rank
+    blocked outside the recorded calls, or computing that long). The call
+    stops, and every rank that was waiting for a record still missing
+    reports its own ``stalled`` for the ranks it waited for, whichever
+    rank's clock stopped the call; the late rank reports none.
 
 Calls that do not go through ``collectives.py`` are not seen: the subgroup
 creation inside ``Grid`` (``dist.new_group``, made once per grid) and any
@@ -78,6 +82,7 @@ enter a checked call, and in the same order.
 from __future__ import annotations
 
 import dataclasses
+import json
 import pickle
 import sys
 import time
@@ -103,6 +108,7 @@ TIMEOUT_S = 120.0      # the longest a checked rank waits at one step for anothe
 _PKG = __name__.rsplit(".", 1)[0]
 _END = ("end", ())     # the (prim, axes) of the step that ends fn
 _STOP = "stop"         # set by a rank that stopped, to wake the ranks waiting elsewhere
+_STALL = "stall"       # the timeout of the first stall, set before its _STOP
 # a waiting rank polls the store, its naps doubling from _NAP0 up to
 # _NAP_FAST for the first _FAST_S seconds of a wait (most steps' ranks
 # arrive within that), then up to _NAP_SLOW
@@ -283,11 +289,46 @@ class _Checker(Recorder):
     def _has(self, *keys: str) -> bool:
         return self.store.check(list(keys))
 
-    def _go(self, verdict: str, want: str) -> bool:
+    def _settle(self, verdict: str, want: str) -> bytes:
         """Settle the verdict ``verdict`` as ``want`` unless a rank settled
-        it first; True for "go"."""
+        it first; returns the verdict: b"go", b"stop", or a stall's
+        b"stall [timeout, the ranks whose records were missing]"."""
         self.settled.append(verdict)
-        return self.store.compare_set(verdict, "", want) == b"go"
+        return self.store.compare_set(verdict, "", want)
+
+    def _go(self, verdict: str, want: str) -> bool:
+        return self._settle(verdict, want) == b"go"
+
+    def _give_up(self, verdict: str, late: bool, missing: Callable[[], list]) -> bytes:
+        """Settle ``verdict`` as stopped, on this rank's timeout (``late``)
+        or on another rank's stop; returns the verdict as ``_settle``. A
+        stop that came from a stall (this rank's timeout, or a stall's
+        timeout in the store) is one this rank stalled in too: it settles a
+        stall with the ranks ``missing()`` now, the first at a verdict
+        giving every rank there one list."""
+        t = TIMEOUT_S if late else float(self.store.get(_STALL)) if self._has(_STALL) else None
+        return self._settle(verdict, "stop" if t is None else
+                            f"stall {json.dumps([float(t), missing()])}")
+
+    def _stall(self, v: bytes) -> Optional[tuple]:
+        """(timeout, missing ranks) of the stall's verdict ``v``, else None.
+        The stall's timeout goes to the store before this rank sets _STOP,
+        so that a rank it wakes knows that a stall stopped the call."""
+        if not v.startswith(b"stall"):
+            return None
+        t, missing = json.loads(v[len(b"stall"):])
+        self.store.compare_set(_STALL, "", str(t))
+        return t, missing
+
+    def _stalled(self, stall: Optional[tuple], at: str) -> Optional[str]:
+        """This rank's finding where ``stall`` (``_stall``'s) stopped its
+        wait ``at`` a step: None where no stall did, or where this rank is
+        one of the ranks that the stall waited for."""
+        if stall is None or self.rank in stall[1]:
+            return None
+        t, missing = stall
+        return (f"stalled: rank {self.rank} was waiting {at} for ranks {missing} when a {t} s "
+                "timeout stopped the checked call")
 
     def _stop(self, finding: Optional[str]) -> CollectiveDivergence:
         self.store.set(_STOP, "1")
@@ -315,14 +356,18 @@ class _Checker(Recorder):
         while True:
             if self._has(*keys):
                 finding = _group_finding(k, [self._get(key) for key in keys])
-                if self._go(f"v{k}", "stop" if finding else "go"):
+                v = self._settle(f"v{k}", "stop" if finding else "go")
+                if v == b"go":
                     return
-                raise self._stop(finding)
+                stall = self._stall(v)      # all here, but after a stall's verdict
+                raise self._stop(finding if stall is None else
+                                 self._stalled(stall, f"at group op #{k} {op}"))
             late, stopped, nap = self._waiting(since, nap)
-            if (late or stopped) and not self._go(f"v{k}", "stop"):
-                missing = [q for q, key in enumerate(keys) if not self._has(key)]
-                raise self._stop(f"stalled: rank {self.rank} waited {TIMEOUT_S} s at group "
-                                 f"op #{k} {op} for ranks {missing}" if late else None)
+            if late or stopped:
+                v = self._give_up(f"v{k}", late, lambda: [
+                    q for q, key in enumerate(keys) if not self._has(key)])
+                if v != b"go":
+                    raise self._stop(self._stalled(self._stall(v), f"at group op #{k} {op}"))
 
     # point-to-point
 
@@ -349,14 +394,17 @@ class _Checker(Recorder):
         mine, theirs = (f"s{a}>{b}#{i}", f"r{a}>{b}#{i}") if a == self.rank else \
             (f"r{a}>{b}#{i}", f"s{a}>{b}#{i}")
         verdict = f"v{a}>{b}#{i}"
+        at = f"at send #{i} from rank {a} to rank {b} in epoch {e}"
         since, nap = time.monotonic(), _NAP0
         while not give_up:
             if self._has(theirs):
                 send, recv = (self._get(mine), self._get(theirs))[:: 1 if a == self.rank else -1]
                 finding = _p2p_finding(a, b, i, send, recv)
-                if self._go(verdict, "stop" if finding else "go"):
+                v = self._settle(verdict, "stop" if finding else "go")
+                if v == b"go":
                     return True
-                return self._halt(finding)
+                stall = self._stall(v)      # both halves here, but after a stall's verdict
+                return self._halt(finding if stall is None else self._stalled(stall, at))
             if self._has(f"g{e}/{peer}") and not self._has(theirs):
                 # the peer reached its next group op (or returned) without posting
                 if not self._go(verdict, "stop"):
@@ -364,10 +412,10 @@ class _Checker(Recorder):
                                                 self._get(f"g{e}/{peer}")))
                 continue
             late, stopped, nap = self._waiting(since, nap)
-            if (late or stopped) and not self._go(verdict, "stop"):
-                return self._halt(f"stalled: rank {self.rank} waited {TIMEOUT_S} s for rank "
-                                  f"{peer}'s half of send #{i} from rank {a} to rank {b} in "
-                                  f"epoch {e}" if late else None)
+            if late or stopped:
+                v = self._give_up(verdict, late, lambda: [peer])
+                if v != b"go":
+                    return self._halt(self._stalled(self._stall(v), at))
         return self._go(verdict, "stop") or self._halt(None)
 
     def _halt(self, finding: Optional[str]) -> bool:
@@ -399,7 +447,7 @@ class _Checker(Recorder):
             for key in set(self.written) - {keys[self.rank]} | set(self.settled):
                 self.store.delete_key(key)
             if self.store.add("done", 1) == self.world:
-                for key in [*keys.values(), "done", _STOP]:
+                for key in [*keys.values(), "done", _STOP, _STALL]:
                     self.store.delete_key(key)
         return reports
 

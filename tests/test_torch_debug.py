@@ -23,6 +23,10 @@ spawn of 2x2 (which also builds a 1x4 grid over the same ranks) and one of
    ``allreduce_sum`` after ``cholesky``, one rank skipping a ``cholesky``
    panel broadcast; and a rank later than the checker's timeout
    (``stalled``, the timeout cut for the case).
+ - The same stall with one rank's timeout forced to pass first, at a
+   group collective and at a ring shift's send/receive halves on 1x4: every
+   rank that was waiting for the late rank reports its own ``stalled``,
+   whichever rank's clock stopped the call.
  - The sweep: every distributed entry point (``cholesky``/``cholesky_info``
    also on a non-SPD input, the distributed BLAS-3, ``max_norm``,
    ``permute``, ``DistMatrix.transpose``/``symmetrize``/``sub_matrix``/
@@ -197,6 +201,46 @@ def test_stalled_rank_reported(results):
     assert _classes(runs[0]["findings"]) == ["stalled"], runs[0]
     assert len(runs[0]["findings"]) == 3 and all("for ranks [0]" in f for f in runs[0]["findings"])
     assert max(r["seconds"] for r in runs) < dr.STALL_S + 2 * dr.STALL_TIMEOUT
+
+
+def _stalled_by_rank(port, key) -> dict:
+    """{rank: its finding} of a stall case, after checking that every rank
+    found the same list, one ``stalled`` finding a waiting rank, within the
+    late rank's delay and two timeouts."""
+    runs = [r[key] for r in port[(2, 2)]]
+    findings = runs[0]["findings"]
+    assert all(r["findings"] == findings for r in runs), [r["findings"] for r in runs]
+    assert _classes(findings) == ["stalled"], findings
+    by_rank = {int(f.split()[2]): f for f in findings}
+    assert len(by_rank) == len(findings), findings
+    assert max(r["seconds"] for r in runs) < dr.FORCED_S + 2 * dr.STALL_TIMEOUT
+    return by_rank
+
+
+def test_forced_stall_every_waiting_rank_reports(results):
+    """plant_stall with rank 1's timeout (1.5 s) passing before the
+    others' (2.0 s): ranks 2 and 3 are stopped by rank 1's verdict before
+    their own timeout, and still report their wait; rank 0, late, reports
+    none; the timeout named is the one that passed."""
+    port, _ = results
+    by_rank = _stalled_by_rank(port, "forced_stall")
+    assert sorted(by_rank) == [1, 2, 3], by_rank
+    for q, f in by_rank.items():
+        assert "group op #0 allreduce_sum[]" in f and "for ranks [0]" in f, f
+        assert f"{dr.FORCED_TIMEOUTS[1]} s" in f, f
+
+
+def test_forced_ring_stall_every_waiting_rank_reports(results):
+    """A ring shift along 1x4 with rank 0 late and rank 1's timeout passing
+    first: rank 1's receive and rank 3's send wait for rank 0's halves (two
+    pair verdicts), rank 2 waits at the end of the call; each reports."""
+    port, _ = results
+    by_rank = _stalled_by_rank(port, "forced_ring_stall")
+    assert sorted(by_rank) == [1, 2, 3], by_rank
+    assert "at send #0 from rank 0 to rank 1 in epoch 0 for ranks [0]" in by_rank[1], by_rank
+    assert "at send #0 from rank 3 to rank 0 in epoch 0 for ranks [0]" in by_rank[3], by_rank
+    assert "group op #0" in by_rank[2] and "for ranks [0, 1, 3]" in by_rank[2], by_rank[2]
+    assert all(f"{dr.FORCED_TIMEOUTS[1]} s" in f for f in by_rank.values()), by_rank
 
 
 @pytest.mark.parametrize("gs,key", SWEPT, ids=[f"{g[0]}x{g[1]}-{k}" for g, k in SWEPT])

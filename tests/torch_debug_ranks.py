@@ -8,6 +8,7 @@ the case the reference misses (a collective in a loop's condition), the
 planted divergences, and the sweep of every distributed entry point, each
 run under ``dlaf_tpu_torch.debug``'s checker.
 """
+import contextlib
 import time
 
 import numpy as np
@@ -27,6 +28,10 @@ N, NB = 64, 16             # the JAX fixtures' size (tests/test_collective_safet
 # STALL_TIMEOUT: the others give up at the step, then wait as long again
 # for every rank's report, which the late rank sends before that
 STALL_TIMEOUT, STALL_S = 2.0, 3.0
+# the forced stalls: rank 1's timeout passes first, 0.5 s before the
+# others'; rank 0 arrives FORCED_S late, after rank 1 stopped the call and
+# 0.75 s before rank 1's wait for the reports (its timeout again) ends
+FORCED_TIMEOUTS, FORCED_S = {1: 1.5}, 2.25
 
 
 # --- the reference's seeded cases, as eager rank code -------------------------
@@ -137,11 +142,30 @@ def plant_skipped_bcast(grid, device):
         coll.bcast = real
 
 
-def plant_stall(grid):
+def plant_stall(grid, late_s=STALL_S):
     """Rank 0 reaches a sum over the grid later than the checker waits."""
     if grid.rank == 0:
-        time.sleep(STALL_S)
+        time.sleep(late_s)
     return coll.allreduce_sum(torch.ones(1), None, grid)
+
+
+def plant_ring_stall(grid):
+    """Rank 0 reaches a ring shift along a 1x4 row FORCED_S late: rank 3's
+    send to it and rank 1's receive from it wait for its halves, rank 2
+    (paired with ranks 1 and 3) waits at the end of the call."""
+    if grid.rank == 0:
+        time.sleep(FORCED_S)
+    return coll.ring_shift(torch.ones(1), COL_AXIS, grid)
+
+
+@contextlib.contextmanager
+def checker_timeout(seconds):
+    """The checker's timeout set to ``seconds`` in this process."""
+    real, debug.TIMEOUT_S = debug.TIMEOUT_S, seconds
+    try:
+        yield
+    finally:
+        debug.TIMEOUT_S = real
 
 
 PLANTS = {"shape": plant_shape, "p2p_epoch": plant_p2p_epoch, "p2p_shape": plant_p2p_shape,
@@ -270,8 +294,12 @@ def debug_cases(extra_grids, grid, device) -> dict:
     sweep on ``grid`` and on each of ``extra_grids`` made over the same
     ranks (e.g. 1x4 on the ranks of 2x2), the ScaLAPACK entries on each,
     the schedules of the seeded scan and of cholesky, and
-    ``assert_same_schedule`` of cholesky over two SPD inputs."""
+    ``assert_same_schedule`` of cholesky over two SPD inputs. The stalls
+    run with the timeout cut: ``stall`` at STALL_TIMEOUT on every rank, the
+    forced ones (2x2, and 1x4 over the same ranks) with rank 1's passing
+    first."""
     out = {"rank": grid.rank, "seeded": {}, "plants": {}, "sweep": {}}
+    grids = [grid] + [dt.Grid(gs) for gs in extra_grids]
     if grid.grid_size == (2, 2):
         for name, fn in SEEDED.items():
             out["seeded"][name] = _checked(fn, grid)
@@ -279,12 +307,12 @@ def debug_cases(extra_grids, grid, device) -> dict:
         for name, fn in PLANTS.items():
             args = (grid, device) if name in ("extra_allreduce", "skipped_bcast") else (grid,)
             out["plants"][name] = _checked(fn, *args)
-        real, debug.TIMEOUT_S = debug.TIMEOUT_S, STALL_TIMEOUT
-        try:
+        with checker_timeout(STALL_TIMEOUT):
             out["stall"] = _checked(plant_stall, grid)
-        finally:
-            debug.TIMEOUT_S = real
-    grids = [grid] + [dt.Grid(gs) for gs in extra_grids]
+        with checker_timeout(FORCED_TIMEOUTS.get(grid.rank, STALL_TIMEOUT)):
+            out["forced_stall"] = _checked(plant_stall, grid, FORCED_S)
+            row = next(g for g in grids if g.grid_size == (1, 4))
+            out["forced_ring_stall"] = _checked(plant_ring_stall, row)
     for g in grids:
         tag = f"{g.grid_size[0]}x{g.grid_size[1]}"
         cases = {**sweep(g, device), **scalapack_sweep(g.grid_size, device)}
