@@ -42,6 +42,7 @@ from ..ops import leaf
 from ..ops.core import ct
 from ..ops.householder import tri_inv
 from ..ops.kernels.trailing import ksub_available, ksub_matmul_masked
+from ..spans import span
 from ..tune import get_tune_parameters
 
 # JAX unrolls the panel loop up to this many wide panels; its upper path
@@ -71,58 +72,62 @@ def _tile_step_static(pan, kt, *, grid: Grid, nb, lnt, offr, pl_c0, pl_c1, pl_en
     c0, c1 = (lk_r - offr) * nb, (lk_r - offr + 1) * nb
 
     # 1. factor the diagonal tile on its owner, broadcast it to the grid
-    tile = pan[c0:c1, jc:jc + nb]
-    mine = p == owner_p and q == owner_q
-    lkk = leaf.potrf_leaf(tile) if mine else pan.new_empty((nb, nb))
-    lkk = coll.bcast2d(lkk, (owner_p, owner_q), grid)
+    with span("cholesky.leaf"):
+        tile = pan[c0:c1, jc:jc + nb]
+        mine = p == owner_p and q == owner_q
+        lkk = leaf.potrf_leaf(tile) if mine else pan.new_empty((nb, nb))
+        lkk = coll.bcast2d(lkk, (owner_p, owner_q), grid)
 
     # 2. panel solve on the owning grid column: one GEMM against the
     #    tile's inverse; the factored tile's strict upper keeps its input
-    below = (row_tile[offr:].repeat_interleave(nb) > kt)[:, None]
-    if q == owner_q:
-        slab = pan[:, jc:jc + nb]
-        solved = slab @ ct(tri_inv(lkk, lower=True, nb=64))
-        newslab = torch.where(below, solved, slab)
-        if p == owner_p:
-            cur = newslab[c0:c1]
-            lower = torch.ones((nb, nb), dtype=torch.bool, device=pan.device).tril()
-            cur.copy_(torch.where(lower, lkk, cur))
-        slab.copy_(newslab)
-        wl = torch.where(below, newslab, 0)
-    else:
-        wl = pan.new_empty((pan.shape[0], nb))
+    with span("cholesky.solve"):
+        below = (row_tile[offr:].repeat_interleave(nb) > kt)[:, None]
+        if q == owner_q:
+            slab = pan[:, jc:jc + nb]
+            solved = slab @ ct(tri_inv(lkk, lower=True, nb=64))
+            newslab = torch.where(below, solved, slab)
+            if p == owner_p:
+                cur = newslab[c0:c1]
+                lower = torch.ones((nb, nb), dtype=torch.bool, device=pan.device).tril()
+                cur.copy_(torch.where(lower, lkk, cur))
+            slab.copy_(newslab)
+            wl = torch.where(below, newslab, 0)
+        else:
+            wl = pan.new_empty((pan.shape[0], nb))
 
-    # 3. broadcast the solved panel along the grid row
-    w = coll.bcast(wl, owner_q, COL_AXIS, grid)
+    with span("cholesky.panel_bcast"):
+        # 3. broadcast the solved panel along the grid row
+        w = coll.bcast(wl, owner_q, COL_AXIS, grid)
 
-    # 4. transposed panel for the local columns from the panel start
-    #    (clamp-into-padding invariant: junk tiles are masked by
-    #    col_tile > kt; padding column tiles update only padding columns)
-    wtT = panel.take_tiles(panel.all_tiles(w, ROW_AXIS, nb, grid),
-                           col_tile[pl_c0:] - offr * Pn)
-    # (contiguous: a one-tile reshape is a transposed view, which K6 refuses)
-    wtT = wtT.permute(2, 0, 1).reshape(nb, (lnt - pl_c0) * nb).contiguous().conj()
-    wtT = torch.where((col_tile[pl_c0:].repeat_interleave(nb) > kt)[None, :], wtT, 0)
+        # 4. transposed panel for the local columns from the panel start
+        #    (clamp-into-padding invariant: junk tiles are masked by
+        #    col_tile > kt; padding column tiles update only padding columns)
+        wtT = panel.take_tiles(panel.all_tiles(w, ROW_AXIS, nb, grid),
+                               col_tile[pl_c0:] - offr * Pn)
+        # (contiguous: a one-tile reshape is a transposed view, which K6 refuses)
+        wtT = wtT.permute(2, 0, 1).reshape(nb, (lnt - pl_c0) * nb).contiguous().conj()
+        wtT = torch.where((col_tile[pl_c0:].repeat_interleave(nb) > kt)[None, :], wtT, 0)
 
     # 5. rank-nb update of the panel's remaining columns only: over ranks
     #    q, the first local tile holding a global tile > kt is (kt+1)//Q
-    pu_c0 = max(pl_c0, (kt + 1) // Qn)
-    if pu_c0 < pl_c1:
-        o = (pu_c0 - pl_c0) * nb
-        pw = (pl_c1 - pl_c0) * nb
-        ych = wtT[:, o:pw]
-        cpan = pan[:, o:]
-        gcs = glob_col[pu_c0 * nb:pl_c1 * nb]
-        inpanel = col_tile[pu_c0:pl_c1].repeat_interleave(nb) < pl_end
-        if trailing_kernel == "kernel" and ksub_available(cpan, w, ych, x_k_major=False):
-            # K6: the pl_end column bound folds into the column indices
-            # as a sentinel above every row index
-            gr = glob_row[r0:, None].int()
-            gc = torch.where(inpanel, gcs, _SENTINEL).int()[None, :]
-            ksub_matmul_masked(cpan, w, ych, gr, gc, x_k_major=False)
-        else:
-            mask = (glob_row[r0:, None] >= gcs[None, :]) & inpanel[None, :]
-            cpan.sub_(torch.where(mask, w @ ych, 0))
+    with span("cholesky.panel_update"):
+        pu_c0 = max(pl_c0, (kt + 1) // Qn)
+        if pu_c0 < pl_c1:
+            o = (pu_c0 - pl_c0) * nb
+            pw = (pl_c1 - pl_c0) * nb
+            ych = wtT[:, o:pw]
+            cpan = pan[:, o:]
+            gcs = glob_col[pu_c0 * nb:pl_c1 * nb]
+            inpanel = col_tile[pu_c0:pl_c1].repeat_interleave(nb) < pl_end
+            if trailing_kernel == "kernel" and ksub_available(cpan, w, ych, x_k_major=False):
+                # K6: the pl_end column bound folds into the column indices
+                # as a sentinel above every row index
+                gr = glob_row[r0:, None].int()
+                gc = torch.where(inpanel, gcs, _SENTINEL).int()[None, :]
+                ksub_matmul_masked(cpan, w, ych, gr, gc, x_k_major=False)
+            else:
+                mask = (glob_row[r0:, None] >= gcs[None, :]) & inpanel[None, :]
+                cpan.sub_(torch.where(mask, w @ ych, 0))
     return w, wtT
 
 
@@ -143,44 +148,48 @@ def _tile_step_static_u(pan, kt, *, grid: Grid, nb, lmt, offc, pl_r0, pl_r1, pl_
     d0, d1 = (lk_c - offc) * nb, (lk_c - offc + 1) * nb
 
     # 1. factor the diagonal tile on its owner, broadcast it to the grid
-    tile = pan[jr:jr + nb, d0:d1]
-    mine = p == owner_p and q == owner_q
-    ukk = leaf.potrf_leaf(tile, upper=True) if mine else pan.new_empty((nb, nb))
-    ukk = coll.bcast2d(ukk, (owner_p, owner_q), grid)
+    with span("cholesky.leaf"):
+        tile = pan[jr:jr + nb, d0:d1]
+        mine = p == owner_p and q == owner_q
+        ukk = leaf.potrf_leaf(tile, upper=True) if mine else pan.new_empty((nb, nb))
+        ukk = coll.bcast2d(ukk, (owner_p, owner_q), grid)
 
     # 2. row-panel solve on the owning grid row (window columns only)
-    right = (col_tile[offc:].repeat_interleave(nb) > kt)[None, :]
-    if p == owner_p:
-        slab = pan[jr:jr + nb, :]
-        solved = ct(tri_inv(ukk, lower=False, nb=64)) @ slab
-        newslab = torch.where(right, solved, slab)
-        if q == owner_q:
-            cur = newslab[:, d0:d1]
-            upper = torch.ones((nb, nb), dtype=torch.bool, device=pan.device).triu()
-            cur.copy_(torch.where(upper, ukk, cur))
-        slab.copy_(newslab)
-        wl = torch.where(right, newslab, 0)
-    else:
-        wl = pan.new_empty((nb, pan.shape[1]))
+    with span("cholesky.solve"):
+        right = (col_tile[offc:].repeat_interleave(nb) > kt)[None, :]
+        if p == owner_p:
+            slab = pan[jr:jr + nb, :]
+            solved = ct(tri_inv(ukk, lower=False, nb=64)) @ slab
+            newslab = torch.where(right, solved, slab)
+            if q == owner_q:
+                cur = newslab[:, d0:d1]
+                upper = torch.ones((nb, nb), dtype=torch.bool, device=pan.device).triu()
+                cur.copy_(torch.where(upper, ukk, cur))
+            slab.copy_(newslab)
+            wl = torch.where(right, newslab, 0)
+        else:
+            wl = pan.new_empty((nb, pan.shape[1]))
 
-    # 3. broadcast the solved row panel down the grid column
-    w = coll.bcast(wl, owner_p, ROW_AXIS, grid)
+    with span("cholesky.panel_bcast"):
+        # 3. broadcast the solved row panel down the grid column
+        w = coll.bcast(wl, owner_p, ROW_AXIS, grid)
 
-    # 4. transposed panel for the local rows from the panel start: block
-    #    row i holds U(kt, i)^H (clamp-into-padding invariant as for L)
-    wt = panel.take_tiles(panel.all_tiles(w, COL_AXIS, nb, grid),
-                          row_tile[pl_r0:] - offc * Qn)
-    wt = wt.transpose(1, 2).reshape((lmt - pl_r0) * nb, nb).contiguous().conj()
-    wt = torch.where((row_tile[pl_r0:].repeat_interleave(nb) > kt)[:, None], wt, 0)
+        # 4. transposed panel for the local rows from the panel start: block
+        #    row i holds U(kt, i)^H (clamp-into-padding invariant as for L)
+        wt = panel.take_tiles(panel.all_tiles(w, COL_AXIS, nb, grid),
+                              row_tile[pl_r0:] - offc * Qn)
+        wt = wt.transpose(1, 2).reshape((lmt - pl_r0) * nb, nb).contiguous().conj()
+        wt = torch.where((row_tile[pl_r0:].repeat_interleave(nb) > kt)[:, None], wt, 0)
 
     # 5. rank-nb update of the panel's remaining rows
-    pu_r0 = max(pl_r0, (kt + 1) // Pn)
-    if pu_r0 < pl_r1:
-        o = (pu_r0 - pl_r0) * nb
-        ph = (pl_r1 - pl_r0) * nb
-        mask = (glob_row[pu_r0 * nb:pl_r1 * nb, None] <= glob_col[None, c0g:]) & \
-            (row_tile[pu_r0:pl_r1].repeat_interleave(nb) < pl_end)[:, None]
-        pan[o:].sub_(torch.where(mask, wt[o:ph] @ w, 0))
+    with span("cholesky.panel_update"):
+        pu_r0 = max(pl_r0, (kt + 1) // Pn)
+        if pu_r0 < pl_r1:
+            o = (pu_r0 - pl_r0) * nb
+            ph = (pl_r1 - pl_r0) * nb
+            mask = (glob_row[pu_r0 * nb:pl_r1 * nb, None] <= glob_col[None, c0g:]) & \
+                (row_tile[pu_r0:pl_r1].repeat_interleave(nb) < pl_end)[:, None]
+            pan[o:].sub_(torch.where(mask, wt[o:ph] @ w, 0))
     return w, wt
 
 
@@ -212,17 +221,18 @@ def _dist_potrf_lower(a, grid: Grid, *, nb, nrt, wt_tiles, trail_chunks, trailin
         r0 = offr * nb
         pan = a[r0:, pl_c0 * nb:pl_c1 * nb]
         ws, wts = [], []
-        for j in range(wt_tiles):
-            kt = kt0 + j
-            if kt >= nrt:
-                break
-            w, wtj = _tile_step_static(
-                pan, kt, grid=grid, nb=nb, lnt=lnt, offr=offr, pl_c0=pl_c0,
-                pl_c1=pl_c1, pl_end=kt0 + wt_tiles, row_tile=row_tile,
-                col_tile=col_tile, glob_row=glob_row, glob_col=glob_col,
-                trailing_kernel=trailing_kernel)
-            ws.append(w)
-            wts.append(wtj)
+        with span("cholesky.panel", pk=pk):
+            for j in range(wt_tiles):
+                kt = kt0 + j
+                if kt >= nrt:
+                    break
+                w, wtj = _tile_step_static(
+                    pan, kt, grid=grid, nb=nb, lnt=lnt, offr=offr, pl_c0=pl_c0,
+                    pl_c1=pl_c1, pl_end=kt0 + wt_tiles, row_tile=row_tile,
+                    col_tile=col_tile, glob_row=glob_row, glob_col=glob_col,
+                    trailing_kernel=trailing_kernel)
+                ws.append(w)
+                wts.append(wtj)
         if pl_c1 >= lnt:
             continue
 
@@ -230,25 +240,27 @@ def _dist_potrf_lower(a, grid: Grid, *, nb, nrt, wt_tiles, trail_chunks, trailin
         # [pl_c1, lnt): a k = len(ws)*nb update per chunk, its rows starting
         # at the chunk's conservative diagonal tile (reference trailing
         # herk/gemm, factorization/cholesky/impl.h:273-300)
-        wide = torch.cat(ws, dim=1)
-        wide_t = torch.cat(wts, dim=0)[:, (pl_c1 - pl_c0) * nb:]
-        lnt_tr = lnt - pl_c1
-        nch = min(trail_chunks, lnt_tr)
-        cw = -(-lnt_tr // nch)
-        for c0 in range(pl_c1, lnt, cw):
-            c1 = min(lnt, c0 + cw)
-            gmin = c0 * Qn   # min global col tile of the chunk over ranks
-            t0 = min(max(offr, -(-(gmin - Pn + 1) // Pn)), lmt - 1)
-            xm = wide[(t0 - offr) * nb:]
-            ych = wide_t[:, (c0 - pl_c1) * nb:(c1 - pl_c1) * nb]
-            ach = a[t0 * nb:, c0 * nb:c1 * nb]
-            if trailing_kernel == "kernel" and ksub_available(ach, xm, ych, x_k_major=False):
-                gr = glob_row[t0 * nb:, None].int()
-                gc = glob_col[None, c0 * nb:c1 * nb].int()
-                ksub_matmul_masked(ach, xm, ych, gr, gc, x_k_major=False)
-                continue
-            tril = glob_row[t0 * nb:, None] >= glob_col[None, c0 * nb:c1 * nb]
-            ach.sub_(torch.where(tril, xm @ ych, 0))
+        with span("cholesky.trailing", pk=pk):
+            wide = torch.cat(ws, dim=1)
+            wide_t = torch.cat(wts, dim=0)[:, (pl_c1 - pl_c0) * nb:]
+            lnt_tr = lnt - pl_c1
+            nch = min(trail_chunks, lnt_tr)
+            cw = -(-lnt_tr // nch)
+            for c0 in range(pl_c1, lnt, cw):
+                c1 = min(lnt, c0 + cw)
+                gmin = c0 * Qn   # min global col tile of the chunk over ranks
+                t0 = min(max(offr, -(-(gmin - Pn + 1) // Pn)), lmt - 1)
+                xm = wide[(t0 - offr) * nb:]
+                ych = wide_t[:, (c0 - pl_c1) * nb:(c1 - pl_c1) * nb]
+                ach = a[t0 * nb:, c0 * nb:c1 * nb]
+                if trailing_kernel == "kernel" and ksub_available(ach, xm, ych,
+                                                                  x_k_major=False):
+                    gr = glob_row[t0 * nb:, None].int()
+                    gc = glob_col[None, c0 * nb:c1 * nb].int()
+                    ksub_matmul_masked(ach, xm, ych, gr, gc, x_k_major=False)
+                    continue
+                tril = glob_row[t0 * nb:, None] >= glob_col[None, c0 * nb:c1 * nb]
+                ach.sub_(torch.where(tril, xm @ ych, 0))
     return a
 
 
@@ -268,42 +280,45 @@ def _dist_potrf_upper(a, grid: Grid, *, nb, nrt, wt_tiles, trail_chunks, trailin
         c0 = offc * nb
         pan = a[pl_r0 * nb:pl_r1 * nb, c0:]
         ws, wts = [], []
-        for j in range(wt_tiles):
-            kt = kt0 + j
-            if kt >= nrt:
-                break
-            w, wtj = _tile_step_static_u(
-                pan, kt, grid=grid, nb=nb, lmt=lmt, offc=offc, pl_r0=pl_r0,
-                pl_r1=pl_r1, pl_end=kt0 + wt_tiles, row_tile=row_tile,
-                col_tile=col_tile, glob_row=glob_row, glob_col=glob_col)
-            ws.append(w)
-            wts.append(wtj)
+        with span("cholesky.panel", pk=pk):
+            for j in range(wt_tiles):
+                kt = kt0 + j
+                if kt >= nrt:
+                    break
+                w, wtj = _tile_step_static_u(
+                    pan, kt, grid=grid, nb=nb, lmt=lmt, offc=offc, pl_r0=pl_r0,
+                    pl_r1=pl_r1, pl_end=kt0 + wt_tiles, row_tile=row_tile,
+                    col_tile=col_tile, glob_row=glob_row, glob_col=glob_col)
+                ws.append(w)
+                wts.append(wtj)
         if pl_r1 >= lmt:
             continue
 
         # wide staircase trailing update over local row tiles [pl_r1, lmt):
         # row chunks, each chunk's columns starting at its conservative
         # diagonal tile
-        wide = torch.cat(ws, dim=0)                         # (wt*nb, ln_w)
-        wide_t = torch.cat(wts, dim=1)[(pl_r1 - pl_r0) * nb:]
-        lmt_tr = lmt - pl_r1
-        nch = min(trail_chunks, lmt_tr)
-        rw = -(-lmt_tr // nch)
-        for r0 in range(pl_r1, lmt, rw):
-            r1 = min(lmt, r0 + rw)
-            gmin = r0 * Pn   # min global row tile of the chunk over ranks
-            t0 = min(max(offc, -(-(gmin - Qn + 1) // Qn)), lnt - 1)
-            ych = wide[:, (t0 - offc) * nb:]
-            xch = wide_t[(r0 - pl_r1) * nb:(r1 - pl_r1) * nb]
-            ach = a[r0 * nb:r1 * nb, t0 * nb:]
-            if trailing_kernel == "kernel" and ksub_available(ach, xch, ych, x_k_major=False):
-                # the upper mask i <= j is K6's gr >= gc on negated indices
-                gr = (-glob_row[r0 * nb:r1 * nb, None]).int()
-                gc = (-glob_col[None, t0 * nb:]).int()
-                ksub_matmul_masked(ach, xch, ych, gr, gc, x_k_major=False)
-                continue
-            triu = glob_row[r0 * nb:r1 * nb, None] <= glob_col[None, t0 * nb:]
-            ach.sub_(torch.where(triu, xch @ ych, 0))
+        with span("cholesky.trailing", pk=pk):
+            wide = torch.cat(ws, dim=0)                         # (wt*nb, ln_w)
+            wide_t = torch.cat(wts, dim=1)[(pl_r1 - pl_r0) * nb:]
+            lmt_tr = lmt - pl_r1
+            nch = min(trail_chunks, lmt_tr)
+            rw = -(-lmt_tr // nch)
+            for r0 in range(pl_r1, lmt, rw):
+                r1 = min(lmt, r0 + rw)
+                gmin = r0 * Pn   # min global row tile of the chunk over ranks
+                t0 = min(max(offc, -(-(gmin - Qn + 1) // Qn)), lnt - 1)
+                ych = wide[:, (t0 - offc) * nb:]
+                xch = wide_t[(r0 - pl_r1) * nb:(r1 - pl_r1) * nb]
+                ach = a[r0 * nb:r1 * nb, t0 * nb:]
+                if trailing_kernel == "kernel" and ksub_available(ach, xch, ych,
+                                                                  x_k_major=False):
+                    # the upper mask i <= j is K6's gr >= gc on negated indices
+                    gr = (-glob_row[r0 * nb:r1 * nb, None]).int()
+                    gc = (-glob_col[None, t0 * nb:]).int()
+                    ksub_matmul_masked(ach, xch, ych, gr, gc, x_k_major=False)
+                    continue
+                triu = glob_row[r0 * nb:r1 * nb, None] <= glob_col[None, t0 * nb:]
+                ach.sub_(torch.where(triu, xch @ ych, 0))
     return a
 
 
@@ -316,6 +331,13 @@ def cholesky(a: DistMatrix, donate: bool = False, uplo: str = "L") -> DistMatrix
     Wide-panel loop: each panel of ``wt_tiles`` block columns (rows for U)
     is factored with panel-restricted rank-nb updates, then the trailing
     matrix gets one rank-``wt_tiles``·nb update in staircase chunks.
+
+    With the recorder on (:mod:`dlaf_tpu_torch.spans`) the call records a
+    ``cholesky`` span, one ``cholesky.panel`` a wide panel and one
+    ``cholesky.trailing`` a trailing update (each with its ``pk``), and in
+    each tile step ``cholesky.leaf`` (K1 and its broadcast),
+    ``cholesky.solve``, ``cholesky.panel_bcast`` (the panel's broadcast and
+    transpose) and ``cholesky.panel_update`` (the in-panel update).
     """
     m, n = a.dist.size
     if m != n:
@@ -337,10 +359,11 @@ def cholesky(a: DistMatrix, donate: bool = False, uplo: str = "L") -> DistMatrix
         # JAX's native U path is unrolled-only: it widens panels until it fits
         wt_tiles = ax * (-(-nrt // (UNROLL_MAX_PANELS * ax)))
     tch = max(1, tune.potrf_dist_trail_chunks)
-    data = a.data if donate else a.data.clone()
     run = _dist_potrf_upper if uplo == "U" else _dist_potrf_lower
-    run(data, a.grid, nb=nb, nrt=nrt, wt_tiles=wt_tiles, trail_chunks=tch,
-        trailing_kernel=tune.potrf_trailing_kernel)
+    with span("cholesky", n=n, nb=nb, uplo=uplo, wt_tiles=wt_tiles, grid=(Pn, Qn)):
+        data = a.data if donate else a.data.clone()
+        run(data, a.grid, nb=nb, nrt=nrt, wt_tiles=wt_tiles, trail_chunks=tch,
+            trailing_kernel=tune.potrf_trailing_kernel)
     return DistMatrix(data, a.dist, a.grid)
 
 

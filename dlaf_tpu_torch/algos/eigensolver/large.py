@@ -30,10 +30,11 @@ tridiagonal folded into the eigenvectors, as in the JAX function.
 """
 from __future__ import annotations
 
-import time
+import contextlib
 
 import torch
 
+from ... import spans
 from ...ops.kernels import _build
 from ...ops.kernels.band2tridiag import band_to_tridiag_strips_kernel, chaser_feasible
 from ...ops.kernels.bt_apply import bt_apply_feasible
@@ -78,8 +79,11 @@ def eigh_large(a, band: int | None = None, rec_chunks: int = 1, timers: bool = F
 
     Returns (w, v), or (w, v, stage_seconds) with ``timers``, as
     :func:`driver.eigh` does (eigenvalues ascending, eigenvectors in
-    columns). With ``timers`` each stage ends with a synchronization and,
-    on a CUDA tensor, :data:`stage_peak_bytes` holds each stage's peak of
+    columns). Each stage is a span ``eigh_large.<stage>`` of the recorder
+    (:mod:`dlaf_tpu_torch.spans`), stage 4's re-chases and applies spans
+    inside it; ``timers`` records them whether or not the recorder is on,
+    ends each with a synchronization and returns their seconds, and, on a
+    CUDA tensor, :data:`stage_peak_bytes` holds each stage's peak of
     allocated memory. Needs n divisible by the band and n > band (general
     shapes go through ``driver.eigh``).
     """
@@ -100,84 +104,83 @@ def eigh_large(a, band: int | None = None, rec_chunks: int = 1, timers: bool = F
     chunk = -(-per_chunk // gsz) * gsz
     nchunks = -(-nsweeps // chunk)
     on_card = a.device.type == "cuda"
-    stage_s = dict.fromkeys(("stage4a_rechase", "stage4b_apply"), 0.0)
     if timers:
         stage_peak_bytes.clear()
 
-    def start():
-        if timers and on_card:
+    @contextlib.contextmanager
+    def stage(name, part=False):
+        """The span ``eigh_large.<name>``; with ``timers`` it ends with a
+        synchronization and, on the card, a stage (not a ``part`` of stage
+        4, whose peak is stage 4's) records its peak of allocated memory."""
+        if timers and on_card and not part:
             torch.cuda.reset_peak_memory_stats(a.device)
-        return time.perf_counter()
-
-    def tick(name, t0, sub=False):
-        """Close stage ``name`` (a part of stage 4 with ``sub``, whose peak
-        is stage 4's)."""
-        if not timers:
-            return time.perf_counter()
-        _sync(a)
-        stage_s[name] = stage_s.get(name, 0.0) + time.perf_counter() - t0
-        if sub:
-            return time.perf_counter()
-        if on_card:
+        with spans.span(f"eigh_large.{name}"):
+            yield
+            if timers:
+                _sync(a)
+        if timers and on_card and not part:
             stage_peak_bytes[name] = torch.cuda.max_memory_allocated(a.device)
-        return start()
 
-    t0 = start()
-    # ---- stage 1: reduction to band ---------------------------------------
-    packed, taus1 = reduction_to_band(a, b)
-    t0 = tick("stage1_red2band", t0)
+    with spans.collect() if timers else contextlib.nullcontext([]) as recs:
+        # ---- stage 1: reduction to band -----------------------------------
+        with stage("stage1_red2band"):
+            packed, taus1 = reduction_to_band(a, b)
 
-    # ---- stage 2: strips + one chase -> (d, e) [+ the whole record] -------
-    strips = packed_to_strips(packed, b)
-    if nchunks == 1:
-        d, e, vs, taus2 = _chase(strips, n, b, 0, chunk)
-    else:   # record nothing: a one-group record past the last sweep
-        d, e, _, _ = _chase(strips, n, b, nsweeps + 1, gsz)
-    t0 = tick("stage2_band2tridiag", t0)
+        # ---- stage 2: strips + one chase -> (d, e) [+ the whole record] ---
+        with stage("stage2_band2tridiag"):
+            strips = packed_to_strips(packed, b)
+            if nchunks == 1:
+                d, e, vs, taus2 = _chase(strips, n, b, 0, chunk)
+            else:   # record nothing: a one-group record past the last sweep
+                d, e, _, _ = _chase(strips, n, b, nsweeps + 1, gsz)
 
-    # ---- stage 3: tridiagonal D&C -------------------------------------------
-    # complex input: the phase similarity makes the subdiagonal real; the
-    # eigenvectors map back with the phases in stage 4
-    e, phases = _phase_normalize(e, a.dtype)
-    w, q = tridiag_eigh(d, e, tune.laed4_max_iter)
-    del d, e
-    t0 = tick("stage3_tridiag_dc", t0)
+        # ---- stage 3: tridiagonal D&C ---------------------------------------
+        # complex input: the phase similarity makes the subdiagonal real; the
+        # eigenvectors map back with the phases in stage 4
+        with stage("stage3_tridiag_dc"):
+            e, phases = _phase_normalize(e, a.dtype)
+            w, q = tridiag_eigh(d, e, tune.laed4_max_iter)
+            del d, e
 
-    # ---- stage 4: stage-2 back-transform ------------------------------------
-    shifted = not cplx and _use_shifted_apply(b, gsz, q.dtype)
-    if shifted:
-        # buffer row r = E row r + 1, and 2b zero rows under the last window
-        buf = q.new_zeros((n + 2 * b, n))
-        buf[:n - 1] = q[1:]
-        row0 = q[:1].clone()
-    else:
-        buf = q.new_zeros((n + b + gsz - 1, n), dtype=a.dtype)
-        buf[:n] = phases[:, None] * q.to(a.dtype) if cplx else q
-    del q, phases
-    for ci in range(nchunks - 1, -1, -1):        # descending sweep order
-        lo = ci * chunk
-        tc = time.perf_counter()
-        if nchunks > 1:
-            _, _, vs, taus2 = _chase(strips, n, b, lo, chunk)
-            tc = tick("stage4a_rechase", tc, sub=True)
-        bt_band_to_tridiag(buf, vs, taus2, b, group_size=gsz, sweep_lo=lo,
-                           prepadded=not shifted, shifted=shifted)
-        tick("stage4b_apply", tc, sub=True)
-        del vs, taus2
-    del strips
-    if shifted:
-        q = torch.cat([row0, buf[:n - 1]])
-        del row0
-    else:
-        q = buf[:n]
-    del buf
-    t0 = tick("stage4_bt_band2tridiag", t0)
+        # ---- stage 4: stage-2 back-transform --------------------------------
+        with stage("stage4_bt_band2tridiag"):
+            shifted = not cplx and _use_shifted_apply(b, gsz, q.dtype)
+            if shifted:
+                # buffer row r = E row r + 1, and 2b zero rows under the last window
+                buf = q.new_zeros((n + 2 * b, n))
+                buf[:n - 1] = q[1:]
+                row0 = q[:1].clone()
+            else:
+                buf = q.new_zeros((n + b + gsz - 1, n), dtype=a.dtype)
+                buf[:n] = phases[:, None] * q.to(a.dtype) if cplx else q
+            del q, phases
+            for ci in range(nchunks - 1, -1, -1):        # descending sweep order
+                lo = ci * chunk
+                if nchunks > 1:
+                    with stage("stage4a_rechase", part=True):
+                        _, _, vs, taus2 = _chase(strips, n, b, lo, chunk)
+                with stage("stage4b_apply", part=True):
+                    bt_band_to_tridiag(buf, vs, taus2, b, group_size=gsz, sweep_lo=lo,
+                                       prepadded=not shifted, shifted=shifted)
+                del vs, taus2
+            del strips
+            if shifted:
+                q = torch.cat([row0, buf[:n - 1]])
+                del row0
+            else:
+                q = buf[:n]
+            del buf
 
-    # ---- stage 5: stage-1 back-transform -------------------------------------
-    q = bt_reduction_to_band(q, packed, taus1, b)
-    del packed, taus1
-    tick("stage5_bt_red2band", t0)
+        # ---- stage 5: stage-1 back-transform ---------------------------------
+        with stage("stage5_bt_red2band"):
+            q = bt_reduction_to_band(q, packed, taus1, b)
+            del packed, taus1
     if timers:
+        stage_s = dict.fromkeys(("stage4a_rechase", "stage4b_apply"), 0.0)
+        for r in recs:
+            if r.name.startswith("eigh_large."):
+                key = r.name[len("eigh_large."):]
+                stage_s[key] = stage_s.get(key, 0.0) + r.seconds
         return w, q, stage_s
     return w, q
 

@@ -34,6 +34,7 @@ import torch
 from ..comm.launch import rank_device
 from ..comm.mesh import Grid
 from ..dist import index as ix
+from ..spans import span
 
 # ---------------------------------------------------------------------------
 # grid registry (reference src/c_api/grid.cpp)
@@ -204,11 +205,19 @@ def _run_cholesky(ctx, uplo, a, desc, device=None):
     from ..algos.cholesky import cholesky
     from ..matrix.dist_matrix import DistMatrix
     grid = dlaf_get_grid(ctx)
-    at = _on(a, _device(grid, device))
-    dm = DistMatrix.from_global(at, desc.mb, grid, pad_identity=True)
-    g = cholesky(dm, uplo=uplo).to_global()
-    del dm
-    return _keep_triangle_(g, at, uplo).cpu().numpy()
+    dev = _device(grid, device)
+    with span("surface.to_card", bytes=a.nbytes):
+        at = _on(a, dev)
+    with span("surface.distribute"):
+        dm = DistMatrix.from_global(at, desc.mb, grid, pad_identity=True)
+    factor = cholesky(dm, uplo=uplo)
+    with span("surface.gather"):
+        g = factor.to_global()
+    del dm, factor
+    with span("surface.keep_triangle"):
+        g = _keep_triangle_(g, at, uplo)
+    with span("surface.to_host", bytes=g.nbytes):
+        return g.cpu().numpy()
 
 
 def dlaf_cholesky_factorization(ctx: int, uplo: str, a, desc: DLAF_descriptor, device=None):
@@ -282,28 +291,33 @@ def _sub(x, d: DLAF_descriptor, n: int, i0: int, j0: int):
             dataclasses.replace(d, m=n, n=n, i=i0, j=j0))
 
 
-def _scalapack_entry(fn, dtype):
+def _scalapack_entry(fn, dtype, name):
+    """The ScaLAPACK drop-in ``dlaf_<name>``; with the recorder on
+    (:mod:`dlaf_tpu_torch.spans`) each call is a ``surface.<name>`` span."""
+    span_name = f"surface.{name}"
+
     def wrapper(uplo, n, a, ia, ja, desca, ctx, **kw):
-        desc = _as_descriptor(desca)
-        a = np.asarray(a, dtype)
-        sub, subdesc = _sub(a, desc, n, ia - 1, ja - 1)
-        out = fn(ctx, uplo, sub, subdesc, **kw)
-        if sub is not a and isinstance(out, np.ndarray) and out.shape == (n, n):
-            full = a.copy()
-            full[ia - 1:ia - 1 + n, ja - 1:ja - 1 + n] = out
-            return full
-        return out
+        with span(span_name, entry=fn.__name__, n=n):
+            desc = _as_descriptor(desca)
+            a = np.asarray(a, dtype)
+            sub, subdesc = _sub(a, desc, n, ia - 1, ja - 1)
+            out = fn(ctx, uplo, sub, subdesc, **kw)
+            if sub is not a and isinstance(out, np.ndarray) and out.shape == (n, n):
+                full = a.copy()
+                full[ia - 1:ia - 1 + n, ja - 1:ja - 1 + n] = out
+                return full
+            return out
     return wrapper
 
 
-dlaf_pspotrf = _scalapack_entry(dlaf_cholesky_factorization, np.float32)
-dlaf_pdpotrf = _scalapack_entry(dlaf_cholesky_factorization, np.float64)
-dlaf_pcpotrf = _scalapack_entry(dlaf_cholesky_factorization, np.complex64)
-dlaf_pzpotrf = _scalapack_entry(dlaf_cholesky_factorization, np.complex128)
-dlaf_pssyevd = _scalapack_entry(dlaf_symmetric_eigensolver, np.float32)
-dlaf_pdsyevd = _scalapack_entry(dlaf_symmetric_eigensolver, np.float64)
-dlaf_pcheevd = _scalapack_entry(dlaf_hermitian_eigensolver, np.complex64)
-dlaf_pzheevd = _scalapack_entry(dlaf_hermitian_eigensolver, np.complex128)
+dlaf_pspotrf = _scalapack_entry(dlaf_cholesky_factorization, np.float32, "pspotrf")
+dlaf_pdpotrf = _scalapack_entry(dlaf_cholesky_factorization, np.float64, "pdpotrf")
+dlaf_pcpotrf = _scalapack_entry(dlaf_cholesky_factorization, np.complex64, "pcpotrf")
+dlaf_pzpotrf = _scalapack_entry(dlaf_cholesky_factorization, np.complex128, "pzpotrf")
+dlaf_pssyevd = _scalapack_entry(dlaf_symmetric_eigensolver, np.float32, "pssyevd")
+dlaf_pdsyevd = _scalapack_entry(dlaf_symmetric_eigensolver, np.float64, "pdsyevd")
+dlaf_pcheevd = _scalapack_entry(dlaf_hermitian_eigensolver, np.complex64, "pcheevd")
+dlaf_pzheevd = _scalapack_entry(dlaf_hermitian_eigensolver, np.complex128, "pzheevd")
 
 
 def _sygvd_entry(dtype, factorized=False):

@@ -1,8 +1,7 @@
 """Measurements of the PyTorch/H100 port beside chip_smoke.py's checks, on one CUDA card.
 
-    python3 scripts/torch_chip_probes.py accumulation bf16_potrf profile dist_profile \
-        stage4_profile k5_levers[=BASELINE.cu] k3_levers[=BASELINE.cu,...] stage2 k3_loads \
-        blas_profile dist_blas_profile
+    python3 scripts/torch_chip_probes.py accumulation bf16_potrf k5_levers[=BASELINE.cu] \
+        k3_levers[=BASELINE.cu,...] stage2 k3_loads
 
 - ``accumulation``: K2 (``csrc/ksub_tf32x3.cu``) as built, where each
   32-deep k step is summed on the tensor cores from zero and then added
@@ -14,28 +13,6 @@
 - ``bf16_potrf``: ``dlaf_tpu_torch.potrf`` on a bf16 matrix (n = 4096,
   nb = 512, U and L): whether it runs, and its residual and its distance
   from the f32 factor of the same (bf16-rounded) input.
-- ``profile``: ``torch.profiler`` over one POTRF U at n = 32768 f32,
-  nb = 512, clean=False (chip_smoke.py's main path) on each route after a
-  warm-up: the device-busy total (the kernels' and copies' own device
-  time), each kernel's time and launches, and the idle share of the wall
-  time of an unprofiled run of the same call.
-- ``dist_profile``: the same over one distributed ``cholesky`` on a 1x1
-  ``Grid`` at n = 32768 f32, nb = 512 (chip_smoke.py's ``dist_main``), L
-  and U, each route: besides the device-busy total, the idle share and the
-  largest device items, K6's total device time and launches (every
-  ``ksub`` kernel on this path is K6's) beside the wrapper's count.
-- ``stage4_profile``: the same over one stage 4 of ``eigh_large`` at
-  n = 32768 f32, band 128 (chip_smoke.py's ``eigh_large_main`` matrix,
-  seed 13): stages 1 and 2 make the reflector record, and
-  ``bt_band_to_tridiag(shifted=True)`` applies it to a random shifted
-  buffer of the same shape (the kernels' time does not depend on the
-  values). Besides the device-busy total and the idle share: the K4/K5
-  kernel's device ms and launches (both wrappers launch one kernel
-  function; the wrappers' counts say which), the rest of the device time
-  (the slab building: ``bt._group_vt_all`` with ``t_factor``, the slabs'
-  zero fills and copies), and the wall time of the same stage 4 with the
-  K4/K5 launches left out (what the slab building alone takes, host and
-  device).
 - ``k5_levers``: K5 (``csrc/bt_apply.cu``) at the heaviest step of
   ``eigh_large`` n = 32768 (k = 8 groups, 2,020 chases, nev = 32768,
   band 128, on random WY slabs made by ``bt._group_vt_all``), and K4 on one
@@ -80,16 +57,6 @@
   the dense band) and ``eigh_large``'s at n = 32768 f32
   (``packed_to_strips`` and one recorded chase), a warm-up and three
   timed runs each, host clock after a synchronisation.
-- ``blas_profile``: ``torch.profiler`` over one ``trsm`` at A 32768 x
-  32768, B 32768 x 16384 f32, nb = 512 (chip_smoke.py's ``blas_main``) and
-  one ``eigh_gen`` at n = 8192 f32, band 128, nb = 512
-  (``eigh_gen_main``): the device-busy total, the idle share and the
-  largest device items; for ``eigh_gen`` also K1's and K3's device ms.
-- ``dist_blas_profile``: the same over the distributed
-  ``triangular_solver`` (L/L/N) and ``general_multiplication`` on a 1x1
-  grid at A 32768 x 32768, B 32768 x 16384 f32, nb = 512 (chip_smoke.py's
-  ``dist_blas_main``), each beside its local counterpart (``trsm``,
-  ``gemm``), with the GEMM kernels' total device ms and launches.
 
 Each probe prints JSON lines; the last line is the card's name and
 power limit as nvidia-smi gives them. Runs only where a CUDA device is.
@@ -115,14 +82,11 @@ from dlaf_tpu_torch.algos.eigensolver import bt as btm  # noqa: E402
 from dlaf_tpu_torch.algos.eigensolver import large  # noqa: E402
 from dlaf_tpu_torch.algos.eigensolver.band_strips import (  # noqa: E402
     band_to_strips, packed_to_strips, strips_extract_tridiag)
-from dlaf_tpu_torch.algos.eigensolver.red2band import reduction_to_band  # noqa: E402
 from dlaf_tpu_torch.matrix import generators as gen  # noqa: E402
-from dlaf_tpu_torch.ops import leaf  # noqa: E402
 from dlaf_tpu_torch.ops.kernels import _build  # noqa: E402
 from dlaf_tpu_torch.ops.kernels.potrf import factor_deviation, potrf_tile  # noqa: E402
-from dlaf_tpu_torch.ops.kernels.bt_apply import bt_apply_fused, bt_apply_group  # noqa: E402
 from dlaf_tpu_torch.ops.kernels.trailing import (  # noqa: E402
-    ksub_matmul, ksub_matmul_masked, ksub_matmul_ref)
+    ksub_matmul, ksub_matmul_ref)
 
 DEV = torch.device("cuda", 0)
 EPS32 = torch.finfo(torch.float32).eps
@@ -557,194 +521,9 @@ def probe_bf16_potrf() -> None:
              factor_deviation_c32_bf16=factor_deviation(f, want, 32, bf16=True))
 
 
-def _device_us(evt) -> float:
-    """A device event's own time (a host op's device time is its kernels')."""
-    from torch.autograd import DeviceType
-    if evt.device_type != DeviceType.CUDA:
-        return 0.0
-    for name in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, name):
-            return float(getattr(evt, name))
-    return 0.0
-
-
-def _set_route(route: str) -> None:
-    leaf.set_leaf_backend(None if route == "kernel" else "torch")
-    dt.set_tune_parameters(potrf_trailing_kernel=route)
-
-
-def _profiled(call) -> dict:
-    """``call`` once to warm up, once timed unprofiled, once under
-    ``torch.profiler``: wall times, the device-busy total (the kernels' and
-    copies' own device time), the idle share of the unprofiled wall time,
-    and the device items by name, largest first."""
-    from torch.profiler import ProfilerActivity, profile
-    call()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    call()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        call()
-        torch.cuda.synchronize()
-        wall_profiled = time.perf_counter() - t0
-    avgs = prof.key_averages()
-    rows = [(e.key, _device_us(e), e.count) for e in avgs]
-    rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
-    busy_ms = sum(r[1] for r in rows) / 1e3
-    return {"wall_ms": wall * 1e3, "wall_profiled_ms": wall_profiled * 1e3,
-            "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / (wall * 1e3), "rows": rows}
-
-
-def _top(rows, busy_ms, count=14) -> list:
-    return [{"name": r[0][:120], "ms": r[1] / 1e3, "launches": r[2], "share": r[1] / 1e3 / busy_ms}
-            for r in rows[:count]]
-
-
-def probe_profile() -> None:
-    n, nb = 32768, 512
-    a = gen.random_hermitian_positive_definite(torch.Generator(device=DEV).manual_seed(0), n,
-                                               torch.float32)
-    for route in ("kernel", "torch"):
-        _set_route(route)
-        r = _profiled(lambda: dt.potrf(a, uplo="U", nb=nb, clean=False))
-        rows = r.pop("rows")
-        emit("profile", route=route, n=n, nb=nb, uplo="U", **r,
-             kernels=_top(rows, r["device_busy_ms"]))
-    leaf.set_leaf_backend(None)
-    dt.reset_tune_parameters()
-
-
-def probe_dist_profile() -> None:
-    n, nb = 32768, 512
-    a = gen.random_hermitian_positive_definite(torch.Generator(device=DEV).manual_seed(0), n,
-                                               torch.float32)
-    dm = dt.DistMatrix.from_global(a, nb, dt.Grid((1, 1)))
-    for uplo in ("L", "U"):
-        for route in ("kernel", "torch"):
-            _set_route(route)
-            before = ksub_matmul_masked.launches
-            r = _profiled(lambda: dt.cholesky(dm, uplo=uplo))
-            rows = r.pop("rows")
-            k6 = [x for x in rows if "ksub" in x[0]]
-            emit("dist_profile", route=route, n=n, nb=nb, uplo=uplo, grid=[1, 1], **r,
-                 k6_ms=sum(x[1] for x in k6) / 1e3, k6_launches=sum(x[2] for x in k6),
-                 k6_wrapper_launches=(ksub_matmul_masked.launches - before) // 3,
-                 k6_share=sum(x[1] for x in k6) / 1e3 / r["device_busy_ms"],
-                 kernels=_top(rows, r["device_busy_ms"]))
-    leaf.set_leaf_backend(None)
-    dt.reset_tune_parameters()
-
-
-def probe_stage4_profile() -> None:
-    n, b = 32768, 128
-    a = gen.random_hermitian(torch.Generator(device=DEV).manual_seed(13), n, torch.float32)
-    packed, _ = reduction_to_band(a, b)
-    del a
-    strips = packed_to_strips(packed, b)
-    del packed
-    _, _, vs, taus = large._chase(strips, n, b, 0, -(-(n - 2) // b) * b)
-    del strips
-    ep2 = torch.randn((n + 2 * b, n), generator=torch.Generator(device=DEV).manual_seed(14),
-                      device=DEV)
-    ep2[n - 1:].zero_()
-    def stage4():
-        btm.bt_band_to_tridiag(ep2, vs, taus, b, group_size=b, shifted=True)
-
-    bt_apply_group.launches = bt_apply_fused.launches = 0
-    r = _profiled(stage4)
-    k4, k5 = bt_apply_group.launches // 3, bt_apply_fused.launches // 3
-    # the same stage 4 with the K4/K5 launches left out: what the slab
-    # building alone takes, host and device
-    kernels = btm.bt_apply_group, btm.bt_apply_fused
-    btm.bt_apply_group = btm.bt_apply_fused = lambda ep, *args: ep
-    try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        stage4()
-        torch.cuda.synchronize()
-        slab_only_ms = (time.perf_counter() - t0) * 1e3
-    finally:
-        btm.bt_apply_group, btm.bt_apply_fused = kernels
-    rows = r.pop("rows")
-    kern = [x for x in rows if "bt_apply" in x[0]]
-    kern_ms = sum(x[1] for x in kern) / 1e3
-    emit("stage4_profile", n=n, band=b, **r, kernel_ms=kern_ms,
-         kernel_launches=sum(x[2] for x in kern), k4_wrapper_launches=k4,
-         k5_wrapper_launches=k5, kernel_share=kern_ms / r["device_busy_ms"],
-         rest_device_ms=r["device_busy_ms"] - kern_ms, slab_only_wall_ms=slab_only_ms,
-         kernels=_top(rows, r["device_busy_ms"]))
-
-
-def probe_blas_profile() -> None:
-    """One ``trsm`` (side L, uplo L, trans N, A 32768 x 32768, B 32768 x
-    16384, nb = 512: chip_smoke.py's ``blas_main``) and one ``eigh_gen``
-    (n = 8192 f32, band 128, nb = 512: ``eigh_gen_main``) profiled."""
-    g = torch.Generator(device=DEV).manual_seed(22)
-    a = gen.random_triangular(g, 32768, torch.float32)
-    b = gen.random_general(g, (32768, 16384), torch.float32)
-    r = _profiled(lambda: dt.trsm(a, b, nb=512))
-    rows = r.pop("rows")
-    emit("blas_profile", call="trsm", m=32768, n=16384, nb=512, **r,
-         kernels=_top(rows, r["device_busy_ms"]))
-    del a, b
-    torch.cuda.empty_cache()
-    g = torch.Generator(device=DEV).manual_seed(25)
-    a = gen.random_hermitian(g, 8192, torch.float32)
-    b = gen.random_hermitian_positive_definite(g, 8192, torch.float32)
-    dt.set_tune_parameters(leaf_block_size=512)
-    try:
-        potrf_tile.launches = 0
-        r = _profiled(lambda: dt.eigh_gen(a, b, band=128))
-    finally:
-        dt.reset_tune_parameters()
-    rows = r.pop("rows")
-    k1 = [x for x in rows if "potrf" in x[0]]
-    k3 = [x for x in rows if "band2tridiag" in x[0] or "chase" in x[0]]
-    emit("blas_profile", call="eigh_gen", n=8192, band=128, nb=512, **r,
-         k1_ms=sum(x[1] for x in k1) / 1e3, k1_wrapper_launches=potrf_tile.launches // 3,
-         k3_ms=sum(x[1] for x in k3) / 1e3, kernels=_top(rows, r["device_busy_ms"]))
-
-
-def probe_dist_blas_profile() -> None:
-    """``triangular_solver`` (L/L/N) and ``general_multiplication`` on a 1x1
-    grid at A 32768 x 32768, B 32768 x 16384, f32, nb = 512
-    (chip_smoke.py's ``dist_blas_main``), each beside its local counterpart
-    (``trsm``, ``gemm``), profiled: the device-busy total, the idle share,
-    the largest device items, and the GEMMs' share (every ``gemm`` kernel)."""
-    g = torch.Generator(device=DEV).manual_seed(30)
-    m, n, nb = 32768, 16384, 512
-    a = gen.random_triangular(g, m, torch.float32)
-    b = gen.random_general(g, (m, n), torch.float32)
-    one = dt.Grid((1, 1))
-    da = dt.DistMatrix.from_global(a, nb, one, pad_identity=True)
-    db = dt.DistMatrix.from_global(b, nb, one)
-
-    def profile(name, call):
-        r = _profiled(call)
-        rows = r.pop("rows")
-        gemm = [x for x in rows if "gemm" in x[0]]
-        emit("dist_blas_profile", call=name, m=m, n=n, nb=nb, grid=[1, 1], **r,
-             gemm_ms=sum(x[1] for x in gemm) / 1e3, gemm_launches=sum(x[2] for x in gemm),
-             kernels=_top(rows, r["device_busy_ms"]))
-
-    profile("triangular_solver", lambda: dt.triangular_solver(da, db))
-    profile("trsm", lambda: dt.trsm(a, b, nb=nb))
-    del da, a
-    torch.cuda.empty_cache()
-    a = gen.random_general(g, (m, m), torch.float32)
-    da = dt.DistMatrix.from_global(a, nb, one)
-    profile("general_multiplication", lambda: dt.general_multiplication(da, db))
-    profile("gemm", lambda: dt.gemm(a, b))
-
-
 PROBES = {"accumulation": probe_accumulation, "bf16_potrf": probe_bf16_potrf,
-          "profile": probe_profile, "dist_profile": probe_dist_profile,
-          "stage4_profile": probe_stage4_profile, "k5_levers": probe_k5_levers,
-          "k3_levers": probe_k3_levers, "stage2": probe_stage2, "k3_loads": probe_k3_loads,
-          "blas_profile": probe_blas_profile, "dist_blas_profile": probe_dist_blas_profile}
+          "k5_levers": probe_k5_levers, "k3_levers": probe_k3_levers, "stage2": probe_stage2,
+          "k3_loads": probe_k3_loads}
 
 
 if __name__ == "__main__":
