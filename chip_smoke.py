@@ -1858,9 +1858,34 @@ def phase_info() -> None:
         for u, info in infos.items():
             require(tile * nb < info <= (tile + 1) * nb,
                     f"potrf_info {route} {u} on a NaN entry: info {info} outside the failing tile")
+    # the distributed Cholesky (1x1, n = 16384, so that the trailing
+    # updates take K6's pipelined route, not split-k) with the NaN pair off
+    # the diagonal tiles, in tile (5, 1): the panel's NaN row reaches the
+    # trailing matrix through K6, and a pivot of the NaN's row tile turns
+    # NaN on both routes
+    far_at = (5 * nb + nb // 2 + 7, nb + nb // 2 + 3)
+    a = gen.random_hermitian_positive_definite(
+        torch.Generator(device=DEV).manual_seed(5), 16384, torch.float32)
+    a[far_at] = a[far_at[::-1]] = float("nan")
+    dist_info = {}
+    for route in ("kernel", "torch"):
+        _set_route(route)
+        try:
+            piped0 = ksub_matmul_masked.pipelined
+            dist_info[route] = int(dt.cholesky_info(dt.DistMatrix.from_global(
+                a, nb, dt.Grid((1, 1))))[1])
+            piped = ksub_matmul_masked.pipelined - piped0
+        finally:
+            _set_route("kernel")
+        tile = far_at[0] // nb
+        require(tile * nb < dist_info[route] <= (tile + 1) * nb,
+                f"cholesky_info {route} on a NaN off the diagonal tiles: info "
+                f"{dist_info[route]} outside tile {tile}")
+        require(route == "torch" or piped > 0, "cholesky_info: no K6 launch on the pipelined route")
     emit("potrf_info", n=n, nb=nb, bad_index=bad, info=got, info_spd=int(info_ok),
          nan_entry=list(nan_at), nan_info=nan_info, nan_first_nonfinite_pivot=nan_at[0] + 1,
-         nan_info_kernel_equals_plain=nan_info["kernel"] == nan_info["torch"])
+         nan_info_kernel_equals_plain=nan_info["kernel"] == nan_info["torch"],
+         dist_nan_n=16384, dist_nan_entry=list(far_at), dist_nan_info=dist_info)
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
@@ -1896,7 +1921,7 @@ def _k6_bound(c, y, gr, gc) -> tuple[float, str, dict]:
                         "live_tile_bound_ms": 6 * k * live_entries / PEAK_TF32 * 1e3}
 
 
-def _k6_case(name, c, x, y, gr, gc, kmaj, outside=None, splits=False) -> dict:
+def _k6_case(name, c, x, y, gr, gc, kmaj, outside=None, splits=False, pipelined=True) -> dict:
     """K6 on (c, x, y) against its plain version in f64, in place on ``c``
     (a view), and each check beside a planted fault it must reject:
 
@@ -1907,12 +1932,16 @@ def _k6_case(name, c, x, y, gr, gc, kmaj, outside=None, splits=False) -> dict:
       - the entries outside the mask bit-equal to the input, shown one of
         them moved by one ulp;
       - a second run on the same input bit-identical to the first;
-      - ``outside``, a view of the buffer next to ``c``, left unchanged.
+      - ``outside``, a view of the buffer next to ``c``, left unchanged;
+      - both runs on the pipelined route where ``pipelined`` (X (m, k),
+        16-byte aligned operands, no k split), else on the route before it
+        (``ksub_matmul_masked.pipelined``).
     """
     m, n = c.shape
     k = y.shape[0]
     plan = ksub_matmul_plan(c, x, y, kmaj)
     c0 = c.clone()
+    piped0 = ksub_matmul_masked.pipelined
     out0 = outside.clone() if outside is not None else None
     keep = (gr >= gc).expand(m, n)
     want = ksub_matmul_masked_ref(c0.double(), x.double(), y.double(), gr, gc, kmaj)
@@ -1920,8 +1949,10 @@ def _k6_case(name, c, x, y, gr, gc, kmaj, outside=None, splits=False) -> dict:
     got = c.clone()
     c.copy_(c0)
     ksub_matmul_masked(c, x, y, gr, gc, x_k_major=kmaj)
+    piped = ksub_matmul_masked.pipelined - piped0
     bound = EPS32 * (2 * k * float(x.abs().max()) * float(y.abs().max()) + float(c0.abs().max()))
     r = {"m": m, "n": n, "k": k, "x_k_major": kmaj, "ldc": c.stride(0), "plan": plan,
+         "pipelined_runs": piped,
          "kept_share": float(keep.float().mean()), "bound": bound,
          "max_abs_err": float((got.double() - want).abs().max()),
          "masked_out_bit_equal": bool(torch.equal(torch.where(keep, 0, _bits(got)),
@@ -1953,6 +1984,8 @@ def _k6_case(name, c, x, y, gr, gc, kmaj, outside=None, splits=False) -> dict:
     require(r["max_abs_err"] <= bound, f"K6 {name}: {r['max_abs_err']} > {bound}")
     require(r["masked_out_bit_equal"], f"K6 {name}: entries outside the mask changed")
     require(r["bit_identical"] and r["outside_unchanged"], f"K6 {name}: {r}")
+    require(piped == (2 if pipelined else 0),
+            f"K6 {name}: {piped} of 2 runs on the pipelined route, want {2 if pipelined else 0}")
     require(r.get("planted_fault_err", bound + 1) > bound,
             f"K6 {name}: the error check passes an inverted tile mask")
     for t in (1, 2):
@@ -1976,7 +2009,9 @@ def phase_k6() -> None:
     heaviest chunks beside the one- and two-term TF32 splits), the 2x2
     grid's index pattern on ragged row-strided views in both layouts (the
     4-byte copy path), the split-k cluster path with dead and live clusters,
-    and all-dead inputs (bit-unchanged); then the heaviest chunk timed."""
+    and all-dead inputs (bit-unchanged), each on the route it must take
+    (the pipelined one for the aligned X (m, k) launches without a k
+    split); then the heaviest chunk timed."""
     g = torch.Generator(device=DEV).manual_seed(8)
     n, nb = N_MAIN, NB_MAIN
     m, w, k = K6_CHUNK
@@ -2010,20 +2045,25 @@ def phase_k6() -> None:
         c, side = _strided_buf(g, 1000, 777, pad)
         x = _strided_buf(g, 1234, 1000, pad)[0] if kmaj else _strided_buf(g, 1000, 1234, pad)[0]
         keep(_k6_case(f"grid2x2_ragged_kmajor{int(kmaj)}", c, x, _strided_buf(g, 1234, 777, pad)[0],
-                      gr22, gc22, kmaj, outside=side))
+                      gr22, gc22, kmaj, outside=side, pipelined=False))
     # the split-k cluster path (6 output tiles, k = 5000), dead and live clusters
     c, side = _strided_buf(g, 300, 200, 2)
     ar = torch.arange(300, device=DEV, dtype=torch.int32)
     keep(_k6_case("split_k_mixed", c, _strided_buf(g, 300, 5000, 2)[0],
                   _strided_buf(g, 5000, 200, 2)[0], (2 * ar)[:, None],
-                  (3 * ar[:200] + 100)[None, :], False, outside=side))
+                  (3 * ar[:200] + 100)[None, :], False, outside=side, pipelined=False))
     # all tiles dead, through the split path (16 tiles) and the unsplit one
     for mm, kk in ((512, 512), (4096, 512)):
         ar = torch.arange(mm, device=DEV, dtype=torch.int32)
         keep(_k6_case(f"all_dead_{mm}", rnd((mm, mm)), rnd((mm, kk)), rnd((kk, mm)),
-                      ar[:, None], (ar + mm)[None, :], False))
-    # the heaviest chunk, timed
+                      ar[:, None], (ar + mm)[None, :], False, pipelined=mm > 512))
+    del big
+    torch.cuda.empty_cache()
+
+    # the heaviest chunk, timed (the n40960 cell's chunks: torch_chip_probes.py k6_levers)
+    piped0 = ksub_matmul_masked.pipelined
     ms = cuda_ms(lambda: ksub_matmul_masked(cL, xL, yL, grL, gcL, x_k_major=False), 5)
+    require(ksub_matmul_masked.pipelined - piped0 == 6, "K6 timed off the pipelined route")
     plain_ms = cuda_ms(lambda: ksub_matmul_masked_ref(cL, xL, yL, grL, gcL, False), 5)
     library_ms = cuda_ms(lambda: torch.addmm(cL, xL, yL, alpha=-1), 5)
     bound_ms, bound_by, work = _k6_bound(cL, yL, grL, gcL)
@@ -2034,26 +2074,28 @@ def phase_k6() -> None:
          library="torch.addmm (unmasked)", bound_ms=bound_ms, bound_by=bound_by,
          tflops=tflops, of_f32_peak=tflops * 1e12 / PEAK_F32, tensor_tflops=3 * tflops,
          of_tf32_peak=3 * tflops * 1e12 / PEAK_TF32, plan=ksub_matmul_plan(cL, xL, yL, False),
-         **work)
+         route="pipelined", **work)
+    del cL, xL, yL
     KERNELS.setdefault("ksub_matmul_masked", {}).update(
         name="ksub_matmul_masked", route="cuda", source="dlaf_tpu_torch/csrc/ksub_tf32x3.cu",
         replaces="dlaf_tpu/ops/pallas/trailing.py:147", max_abs_err=worst["max_abs_err"],
         bound=worst["bound"], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
         bound_tf32x3_ms=work["bound_tf32x3_ms"], bound_f32_ffma_ms=work["bound_f32_ffma_ms"],
         library_ms=library_ms, timed_shape=[m, w, k])
-    del big, cL, xL, yL
     torch.cuda.empty_cache()
 
 
 def _counters() -> dict:
     return {"potrf_tile": potrf_tile.launches, "ksub_matmul": ksub_matmul.launches,
             "ksub_matmul_masked": ksub_matmul_masked.launches,
+            "ksub_matmul_masked_pipelined": ksub_matmul_masked.pipelined,
             "band_to_tridiag_strips": band_to_tridiag_strips_kernel.launches,
             "bt_apply_group": bt_apply_group.launches, "bt_apply_fused": bt_apply_fused.launches}
 
 
 def _counters_reset() -> None:
     potrf_tile.launches = ksub_matmul.launches = ksub_matmul_masked.launches = 0
+    ksub_matmul_masked.pipelined = 0
     _count_reset()
 
 

@@ -70,7 +70,51 @@
 // cluster share one output tile, so they are dead together and all return
 // before either cluster barrier. A live tile subtracts only where the mask
 // holds, in either epilogue; entries outside it are never written.
+//
+// K6's pipelined route (ksub_tf32x3_kernel<kMasked>): every masked
+// launch with X (m, k), both operands 16-byte aligned and no k split, which
+// is every K6 launch of the distributed POTRF but the small grids at the
+// factorization's tail. The route above issues each k step's products only
+// after its own split, the previous step's wait and promotion, and two block
+// barriers, so the tensor cores idle between steps (2.5 us a 128 x 128 x 32
+// step against 0.84 us at their peak). Here they are kept fed:
+//   - roles swapped: the block computes D^T = Y^T X^T, a 128 (n) x 128 (m)
+//     tile. X (m, k) row-major is K-major, the layout TF32 wgmma reads B in,
+//     so TMA lands it as it is (128-byte rows, 128B-swizzled); Y^T is the
+//     register operand A, read from Y's landed tile and split in registers.
+//     D's rows take Y's columns in an order that makes those reads free of
+//     bank conflicts (aoff below).
+//   - warp specialization: warpgroups 0-1 run wgmma (232 registers), warp 8
+//     of warpgroup 2 keeps TMA loads in flight through a ring of kRing
+//     stages with full/empty mbarriers, and warps 9-11 split each landed X
+//     tile into its TF32 hi (in place) and lo (beside it), one stage ahead
+//     of the products, and release it through a third barrier. No
+//     __syncthreads in the mainloop. The splits round on the integer pipes
+//     (split_rn), not on the conversion unit.
+//   - products in flight across steps: each k8 sub-step's three products
+//     are one wgmma group, and the consumers wait for all but the last
+//     group (wait_group 1), so the next sub-step's fragments load while the
+//     tensor cores work; the step sums into one of two accumulator sets,
+//     and step kt's promotion into the f32 total runs, a quarter a k8
+//     sub-step, while step kt + 1's products are on the tensor cores.
+//   - persistent blocks: one block a SM walks the output tiles blockIdx.x,
+//     + gridDim.x, ...; tiles wholly outside the mask are found before the
+//     walk and never scheduled, and one tile's epilogue overlaps the next
+//     tile's loads. The epilogue stages the transposed tile through shared
+//     memory, a warp's 32 rows of C at a time, so that its read-modify-write
+//     of C is 16 bytes a lane in whole 32-byte sectors.
+// The arithmetic is the route's above: the same split, the same three
+// products a k8 step, each 32-deep step summed from zero on the tensor
+// cores and added into the f32 total with round-to-nearest adds. No device
+// scratch: the tensor maps are __grid_constant__ parameters.
+//
+// On an H100 at 700 W it holds the tensor cores at 0.55-0.61 of their TF32
+// peak at the POTRF's chunks (PERF.md), drawing the card's power limit:
+// the clock falls to 1.7-1.85 GHz. Its own overheads are the promotion's
+// reads of the finished accumulators (about a fifth of the time) and the
+// splits.
 #include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
@@ -145,6 +189,23 @@ __device__ __forceinline__ void load_tile(float* tile, const float* src, long lo
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
+}
+
+// split() on the integer pipes, without the conversion unit, which the
+// pipelined route's eight thousand splits a k step would keep busy: adding
+// half a TF32 unit to the bits and clearing the 13 dropped ones is
+// cvt.rna.tf32.f32's rounding (to nearest, ties away) of every finite x.
+// For a NaN x that add may carry out of the sign bit and give hi = +-0, so
+// lo keeps the NaN: where x is not finite, x - hi is the card's NaN
+// 0x7FFFFFFF (an infinite x keeps hi = x and gets lo = NaN, as in split()),
+// and lo's rounding takes the larger, as int32, of the sum and its input.
+// That differs from the plain add only where the add carries into the sign
+// bit, which for x - hi happens only at that NaN. Every product a non-finite
+// x enters is then NaN through lo; finite values split as before.
+__device__ __forceinline__ void split_rn(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  const uint32_t d = __float_as_uint(x - __uint_as_float(hi));
+  lo = uint32_t(max(int(d + 0x1000u), int(d))) & 0xFFFFE000u;
 }
 
 // element (n, k) of a K-major B tile in wgmma's no-swizzle canonical layout:
@@ -388,6 +449,361 @@ ksub_tf32x3_kernel(float* __restrict__ c, long long ldc, const float* __restrict
   cluster.sync();               // keep each partial alive until read
 }
 
+// ---- K6's pipelined route ----
+constexpr int kRing = 4;                   // stages of the ring
+constexpr int kPThreads = 384;             // warpgroups 0-1 consumers, 2 producer
+constexpr int kSplitters = 96;             // warps 9-11 split X
+constexpr int kConsumerWarps = 8;
+constexpr int kXBytes = BM * BK * 4;       // X: 128 rows (m) of 32 k, 128 bytes a row
+constexpr int kYBox = 32 * BK * 4;         // one TMA box of Y: 32 rows (k) of 32 n
+constexpr int kPStage = 3 * kXBytes;       // X (hi in place), X's lo, Y (four boxes)
+constexpr int kMaxTiles = 1024;            // a block's candidate tiles (one flag each)
+constexpr int kEpiLd = 16 + 4;             // a consumer warp's staged chunk [32 m][16 n + 4]
+constexpr int kEpiBytes = kConsumerWarps * 32 * kEpiLd * 4;
+constexpr size_t kPSmem = 1024 + kRing * kPStage + kEpiBytes + 3 * kRing * 8 + kMaxTiles;
+static_assert(kYBox * 4 == kXBytes && BN == 4 * 32, "Y's tile is four 32-column boxes");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+// a box of the 2-d tensor map at (c0 inner, c1 outer) into shared memory;
+// its bytes complete the barrier's transaction count
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)),
+      "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait_n() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// a K-major B operand of 128-byte rows in the 128B swizzle (8-row groups
+// 1024 bytes apart); a k8 step starts 32 bytes further into the rows
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return ((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) | (uint64_t(1024 >> 4) << 32) |
+         (uint64_t(1) << 62);
+}
+
+// the ring's barriers: full[s] (TMA landed), ready[s] (X split), empty[s]
+// (the consumers are done with stage s)
+struct Ring {
+  uint32_t bars;   // shared address of full[0]
+  __device__ __forceinline__ uint32_t full(int s) const { return bars + 8 * s; }
+  __device__ __forceinline__ uint32_t ready(int s) const { return bars + 8 * (kRing + s); }
+  __device__ __forceinline__ uint32_t empty(int s) const { return bars + 8 * (2 * kRing + s); }
+};
+
+// one 32-deep k step of a consumer warpgroup into cur, on the ring's stage
+// of step gs; with promote, the previous step's sums (prev) are added into
+// tot once its last products are done, while this step's are in flight,
+// and its stage is released
+__device__ __forceinline__ void pipe_step(float (&cur)[64], float (&prev)[64], float (&tot)[64],
+                                          uint32_t (&ah)[2][4], uint32_t (&al)[2][4],
+                                          const uint32_t (&aoff)[4], const uint8_t* smem,
+                                          Ring ring, uint32_t gs, bool promote, int lane) {
+  const int s = gs % kRing;
+  const uint32_t par = (gs / kRing) & 1;
+  mbar_wait(ring.full(s), par);
+  mbar_wait(ring.ready(s), par);
+  const uint8_t* st = smem + s * kPStage;
+  const uint32_t xh = smem_u32(st), xl = xh + kXBytes;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    uint32_t(&h)[4] = ah[j % 2];
+    uint32_t(&l)[4] = al[j % 2];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      split_rn(*reinterpret_cast<const float*>(st + aoff[r] + j * 1024), h[r], l[r]);
+    wgmma_fence();
+    // as the route above: lo*hi, hi*lo, hi*hi (here Y^T X^T); the step's
+    // first product starts its sum afresh
+    wgmma_tf32(cur, h, sw128_desc(xl + 32 * j), j > 0);
+    wgmma_tf32(cur, l, sw128_desc(xh + 32 * j), 1);
+    wgmma_tf32(cur, h, sw128_desc(xh + 32 * j), 1);
+    wgmma_commit();
+    wgmma_wait_n<1>();
+    // the group before this one is done: its fragments may be reloaded
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      reg_fence(ah[(j + 1) % 2][r]);
+      reg_fence(al[(j + 1) % 2][r]);
+    }
+    if (promote) {
+      // ... and so is the previous step: free its stage, and promote it a
+      // quarter a k8 step
+      if (j == 0) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) reg_fence(prev[i]);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(ring.empty((gs + kRing - 1) % kRing));
+      }
+#pragma unroll
+      for (int i = 16 * j; i < 16 * j + 16; ++i) tot[i] += prev[i];
+    }
+  }
+}
+
+// after a tile's last step (gs - 1): its products done, promoted, its
+// stage released
+__device__ __forceinline__ void pipe_finish(float (&last)[64], float (&tot)[64],
+                                            uint32_t (&ah)[2][4], uint32_t (&al)[2][4],
+                                            Ring ring, uint32_t gs, int lane) {
+  wgmma_wait_n<0>();
+#pragma unroll
+  for (int i = 0; i < 64; ++i) reg_fence(last[i]);
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      reg_fence(ah[j][r]);
+      reg_fence(al[j][r]);
+    }
+#pragma unroll
+  for (int i = 0; i < 64; ++i) tot[i] += last[i];
+  __syncwarp();
+  if (lane == 0) mbar_arrive(ring.empty((gs + kRing - 1) % kRing));
+}
+
+// tmx: X (m, k) as boxes of 32 k x 128 m; tmy: Y (k, n) as boxes of 32 n x
+// 32 k; both 128B-swizzled, zero-filled past the edges. C, grow and gcol as
+// in the kernel above. Only K6 takes this route (K2 keeps the one above):
+// kMasked is true, the last template argument by which the profiler's
+// readers tell K6's kernels from K2's.
+template <bool kMasked>
+__global__ void __launch_bounds__(kPThreads, 1)
+ksub_tf32x3_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUtensorMap tmy,
+                   float* __restrict__ c, long long ldc, int m, int n, int k,
+                   const int* __restrict__ grow, const int* __restrict__ gcol) {
+  static_assert(kMasked, "K2 keeps the route above");
+  extern __shared__ __align__(16) uint8_t psmem[];
+  // the swizzle needs 1024-byte aligned tiles
+  uint8_t* smem = psmem + (((smem_u32(psmem) + 1023) & ~1023u) - smem_u32(psmem));
+  float* epi = reinterpret_cast<float*>(smem + kRing * kPStage);
+  const Ring ring{smem_u32(smem + kRing * kPStage + kEpiBytes)};
+  uint8_t* live = smem + kRing * kPStage + kEpiBytes + 3 * kRing * 8;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tiles_n = (n + BN - 1) / BN, tiles = ((m + BM - 1) / BM) * tiles_n;
+  const int ncand = (int)blockIdx.x < tiles ? (tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
+  const int nkt = (k + BK - 1) / BK;
+  // candidate i of this block: the tile blockIdx.x + i gridDim.x, n fastest
+  auto origin = [&](int i, int& m0, int& n0) {
+    const int t = blockIdx.x + i * gridDim.x;
+    m0 = (t / tiles_n) * BM;
+    n0 = (t % tiles_n) * BN;
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < kRing; ++s) {
+      mbar_init(ring.full(s), 1);
+      mbar_init(ring.ready(s), kSplitters);
+      mbar_init(ring.empty(s), kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // which of this block's tiles hold an entry of the mask: max(grow) over
+  // the tile's rows >= min(gcol) over its columns (BM == BN: one loop)
+  for (int i = warp; i < ncand; i += kPThreads / 32) {
+    int m0, n0, rmax = INT_MIN, cmin = INT_MAX;
+    origin(i, m0, n0);
+    for (int e = lane; e < BM; e += 32) {
+      if (m0 + e < m) rmax = max(rmax, grow[m0 + e]);
+      if (n0 + e < n) cmin = min(cmin, gcol[n0 + e]);
+    }
+    const bool alive = __reduce_max_sync(0xffffffffu, rmax) >= __reduce_min_sync(0xffffffffu, cmin);
+    if (lane == 0) live[i] = alive;
+  }
+  __syncthreads();
+
+  if (warp >= kConsumerWarps) {
+    // ---- producer warpgroup: its paths never rejoin the consumers' ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp == kConsumerWarps) {
+      if (lane != 0) return;
+      uint32_t gs = 0;          // k steps issued so far, over the tiles
+      for (int i = 0; i < ncand; ++i) {
+        if (!live[i]) continue;
+        int m0, n0;
+        origin(i, m0, n0);
+        const int nq = min(4, (n - n0 + 31) / 32);   // Y's boxes that hold columns
+        for (int kt = 0; kt < nkt; ++kt, ++gs) {
+          const int s = gs % kRing;
+          const uint32_t use = gs / kRing;
+          if (use > 0) mbar_wait(ring.empty(s), (use - 1) & 1);
+          const uint32_t st = smem_u32(smem + s * kPStage);
+          mbar_expect_tx(ring.full(s), kXBytes + nq * kYBox);
+          tma_load(st, &tmx, ring.full(s), kt * BK, m0);
+          for (int q = 0; q < nq; ++q)
+            tma_load(st + 2 * kXBytes + q * kYBox, &tmy, ring.full(s), n0 + 32 * q, kt * BK);
+        }
+      }
+    } else {
+      // X's split in the landed layout: hi over x, lo beside it
+      const int ti = tid - (kConsumerWarps + 1) * 32;
+      uint32_t gs = 0;
+      for (int i = 0; i < ncand; ++i) {
+        if (!live[i]) continue;
+        for (int kt = 0; kt < nkt; ++kt, ++gs) {
+          const int s = gs % kRing;
+          mbar_wait(ring.full(s), (gs / kRing) & 1);
+          uint4* hi = reinterpret_cast<uint4*>(smem + s * kPStage);
+          uint4* lo = hi + kXBytes / 16;
+          for (int e = ti; e < kXBytes / 16; e += kSplitters) {
+            const uint4 v = hi[e];
+            uint4 h, l;
+            split_rn(__uint_as_float(v.x), h.x, l.x);
+            split_rn(__uint_as_float(v.y), h.y, l.y);
+            split_rn(__uint_as_float(v.z), h.z, l.z);
+            split_rn(__uint_as_float(v.w), h.w, l.w);
+            hi[e] = h;
+            lo[e] = l;
+          }
+          // the tensor cores read through the async proxy
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          mbar_arrive(ring.ready(s));
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroups: D^T rows 64 w .. 64 w + 63 ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int w = warp / 4, v = warp % 4, g = lane / 4, t = lane % 4;
+  // D^T row 64 w + 16 v + g + 8 hh holds Y's column nloc[hh] = 32 q +
+  // 16 (g / 4) + 4 (2 (v % 2) + hh) + g % 4 of the tile: box q = 2 w + v / 2,
+  // 16-byte chunk 4 (g / 4) + 2 (v % 2) + hh, lane g % 4 of it. The A fragment's registers r = 0..3 read k = t + 4 (r / 2)
+  // of rows hh = r % 2; under the swizzle (chunk ^ k % 8) the 32 lanes of
+  // every load meet 32 banks. aoff: their bytes in the stage at k8 step 0
+  // (step j is 1024 bytes further: 8 rows of 128 bytes).
+  const int q = 2 * w + v / 2;
+  uint32_t aoff[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int kk = t + 4 * (r / 2), chunk = 4 * (g / 4) + 2 * (v % 2) + r % 2;
+    aoff[r] = 2 * kXBytes + q * kYBox + kk * 128 + ((chunk ^ kk) << 4) + (g % 4) * 4;
+  }
+
+  float acc0[64], acc1[64], tot[64];
+  uint32_t ah[2][4], al[2][4];   // A fragments of the two k8 steps in flight
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) ah[j][r] = al[j][r] = 0u;
+  uint32_t gs = 0;   // k steps consumed so far, over the tiles
+
+  for (int i = 0; i < ncand; ++i) {
+    if (!live[i]) continue;
+    int m0, n0;
+    origin(i, m0, n0);
+    // (the accumulators' old values are dead: the epilogue may use their registers)
+#pragma unroll
+    for (int e = 0; e < 64; ++e) tot[e] = acc0[e] = acc1[e] = 0.f;
+    // the two accumulator sets take the steps in turn
+    int kt = 0;
+    for (; kt + 1 < nkt; kt += 2, gs += 2) {
+      pipe_step(acc0, acc1, tot, ah, al, aoff, smem, ring, gs, kt > 0, lane);
+      pipe_step(acc1, acc0, tot, ah, al, aoff, smem, ring, gs + 1, true, lane);
+    }
+    if (kt < nkt) {
+      pipe_step(acc0, acc1, tot, ah, al, aoff, smem, ring, gs, kt > 0, lane);
+      pipe_finish(acc0, tot, ah, al, ring, ++gs, lane);
+    } else {
+      pipe_finish(acc1, tot, ah, al, ring, gs, lane);
+    }
+
+    // epilogue: tot[4 j + 2 hh + o] is D^T (row nloc[hh], column 8 j + 2 t
+    // + o), C's entry (m0 + 8 j + 2 t + o, n0 + nloc[hh]). A warp's 16
+    // columns are two runs of 8 (cols0 + 0..7, cols0 + 16..23); it stages
+    // its tile through shared memory in chunks of 32 rows of C, as [row][16
+    // columns], and reads them back as 16-byte runs of a row, so that its
+    // loads and stores of C fill whole 32-byte sectors, four columns a lane
+    // (p4 = 4 (lane % 4): columns cols0 + 16 (p4 / 8) + p4 % 8 + 0..3). Kept
+    // entries only; a chunk's loads are all issued before its stores.
+    float* stg = epi + warp * 32 * kEpiLd;
+    const int p4 = 4 * (lane % 4);
+    const int gn = n0 + 32 * q + 8 * (v % 2) + 16 * (p4 / 8) + p4 % 8;
+    int gc[4];
+    bool cin[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      cin[i] = gn + i < n;
+      gc[i] = cin[i] ? gcol[gn + i] : 0;
+    }
+    const bool vec = ((reinterpret_cast<uintptr_t>(c) & 15) == 0) && (ldc % 4 == 0);
+#pragma unroll
+    for (int ch = 0; ch < 4; ++ch) {
+      __syncwarp();
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int o = 0; o < 2; ++o)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+            stg[(8 * jj + 2 * t + o) * kEpiLd + 8 * (g / 4) + 4 * hh + g % 4] =
+                tot[4 * (4 * ch + jj) + 2 * hh + o];
+      __syncwarp();
+      float4 dv[4], cv[4];
+      bool keep[4][4], whole[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int ml = lane / 4 + 8 * r, gm = m0 + 32 * ch + ml;
+        dv[r] = *reinterpret_cast<const float4*>(stg + ml * kEpiLd + p4);
+        const int gr = gm < m ? grow[gm] : 0;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) keep[r][i] = gm < m && cin[i] && gr >= gc[i];
+        whole[r] = vec && keep[r][0] && keep[r][1] && keep[r][2] && keep[r][3];
+        float* pc = c + (long long)gm * ldc + gn;
+        if (whole[r]) {
+          cv[r] = *reinterpret_cast<const float4*>(pc);
+        } else {
+          cv[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (keep[r][0]) cv[r].x = pc[0];
+          if (keep[r][1]) cv[r].y = pc[1];
+          if (keep[r][2]) cv[r].z = pc[2];
+          if (keep[r][3]) cv[r].w = pc[3];
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int gm = m0 + 32 * ch + lane / 4 + 8 * r;
+        float* pc = c + (long long)gm * ldc + gn;
+        const float4 o = make_float4(cv[r].x - dv[r].x, cv[r].y - dv[r].y, cv[r].z - dv[r].z,
+                                     cv[r].w - dv[r].w);
+        if (whole[r]) {
+          *reinterpret_cast<float4*>(pc) = o;
+        } else {
+          if (keep[r][0]) pc[0] = o.x;
+          if (keep[r][1]) pc[1] = o.y;
+          if (keep[r][2]) pc[2] = o.z;
+          if (keep[r][3]) pc[3] = o.w;
+        }
+      }
+    }
+  }
+}
+
 int num_sms() {
   static int sms = 0;
   if (sms == 0) {
@@ -471,6 +887,65 @@ bool aligned16(const void* p, long long ld) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0 && ld % 4 == 0;
 }
 
+// cuTensorMapEncodeTiled, looked up through the runtime (no -lcuda at link time)
+decltype(&cuTensorMapEncodeTiled) encode_tiled() {
+  static decltype(&cuTensorMapEncodeTiled) fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<decltype(&cuTensorMapEncodeTiled)>(p);
+  }
+  return fn;
+}
+
+// a row-major (outer, inner) f32 matrix of leading dimension ld, in boxes
+// of box_outer x box_inner (box_inner * 4 = 128 bytes), 128B-swizzled
+bool tensor_map(CUtensorMap* map, const float* p, long long ld, int inner, int outer,
+                int box_inner, int box_outer) {
+  auto encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * sizeof(float)};
+  const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(p), dims, strides, box,
+                unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// K6's pipelined route takes X (m, k) with both operands 16-byte aligned
+// (TMA's rule) and a grid that needs no k split
+bool pipelined_route(const void* x, long long ldx, const void* y, long long ldy, int m, int n,
+                     int k, int x_k_major) {
+  return !x_k_major && aligned16(x, ldx) && aligned16(y, ldy) && ldx >= k && ldy >= n &&
+         split_of(m, n, k) == 1;
+}
+
+int launch_pipelined(float* c, long long ldc, const float* x, long long ldx, const float* y,
+                     long long ldy, int m, int n, int k, const int* grow, const int* gcol,
+                     cudaStream_t stream) {
+  void (*kernel)(const CUtensorMap, const CUtensorMap, float*, long long, int, int, int,
+                 const int*, const int*) = ksub_tf32x3_kernel<true>;
+  static const cudaError_t attr_err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kPSmem);
+  if (attr_err != cudaSuccess) return (int)attr_err;
+  CUtensorMap tmx, tmy;
+  if (!tensor_map(&tmx, x, ldx, k, m, BK, BM) || !tensor_map(&tmy, y, ldy, n, k, 32, BK))
+    return (int)cudaErrorInvalidValue;
+  // one block a SM, each walking its share of the tiles (at most kMaxTiles)
+  const int tiles = ((m + BM - 1) / BM) * ((n + BN - 1) / BN);
+  const int grid = max(min(num_sms(), tiles), (tiles + kMaxTiles - 1) / kMaxTiles);
+  kernel<<<grid, kPThreads, kPSmem, stream>>>(tmx, tmy, c, ldc, m, n, k, grow, gcol);
+  return (int)cudaGetLastError();
+}
+
 // the instantiation for this layout and copy path
 template <bool kMasked>
 int dispatch(void* c, long long ldc, const void* x, long long ldx, const void* y, long long ldy,
@@ -503,11 +978,19 @@ extern "C" int dlaf_ksub_tf32x3(void* c, long long ldc, const void* x, long long
 }
 
 // K6: C (m, n) -= op(X) Y where grow[i] >= gcol[j], else C unchanged;
-// operands as for K2; grow (m) and gcol (n) contiguous int32 vectors
+// operands as for K2; grow (m) and gcol (n) contiguous int32 vectors.
+// *pipelined (int) is set to 1 where the call took the pipelined route, else 0
 extern "C" int dlaf_ksub_tf32x3_masked(void* c, long long ldc, const void* x, long long ldx,
                                        const void* y, long long ldy, const void* grow,
                                        const void* gcol, int m, int n, int k, int x_k_major,
-                                       void* stream) {
+                                       void* stream, void* pipelined) {
+  int* piped = static_cast<int*>(pipelined);
+  *piped = m > 0 && n > 0 && k > 0 && pipelined_route(x, ldx, y, ldy, m, n, k, x_k_major);
+  if (*piped)
+    return launch_pipelined(static_cast<float*>(c), ldc, static_cast<const float*>(x), ldx,
+                            static_cast<const float*>(y), ldy, m, n, k,
+                            static_cast<const int*>(grow), static_cast<const int*>(gcol),
+                            static_cast<cudaStream_t>(stream));
   return dispatch<true>(c, ldc, x, ldx, y, ldy, grow, gcol, m, n, k, x_k_major, stream);
 }
 

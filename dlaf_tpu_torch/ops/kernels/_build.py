@@ -42,8 +42,9 @@ SIGNATURES = {
     "ksub_tf32x3": {
         # c, ldc, x, ldx, y, ldy, m, n, k, x_k_major, stream
         "dlaf_ksub_tf32x3": [_P, _LL, _P, _LL, _P, _LL, _I, _I, _I, _I, _P],
-        # K6: c, ldc, x, ldx, y, ldy, grow, gcol (int32), m, n, k, x_k_major, stream
-        "dlaf_ksub_tf32x3_masked": [_P, _LL, _P, _LL, _P, _LL, _P, _P, _I, _I, _I, _I, _P],
+        # K6: c, ldc, x, ldx, y, ldy, grow, gcol (int32), m, n, k, x_k_major, stream,
+        # pipelined (int out: 1 where the call took the pipelined route)
+        "dlaf_ksub_tf32x3_masked": [_P, _LL, _P, _LL, _P, _LL, _P, _P, _I, _I, _I, _I, _P, _P],
         # x, ldx, y, ldy, m, n, k, out (int[2]: 16-byte copies, k split)
         "dlaf_ksub_tf32x3_plan": [_P, _LL, _P, _LL, _I, _I, _I, _P],
     },

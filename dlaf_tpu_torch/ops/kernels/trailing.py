@@ -14,7 +14,10 @@ split of each f32 operand, the TPU kernel's bf16_3x scheme in TF32), which
 holds f32's error bound; a single TF32 pass would not. K6 is that kernel's
 masked instantiation: a 128 x 128 output tile wholly outside the mask
 returns before it reads anything, and a live tile writes only the entries
-inside the mask.
+inside the mask. K6's launches with X (m, k), 16-byte aligned operands and
+no k split take the same file's pipelined kernel (TMA ring, warp-specialized
+wgmma, persistent blocks over the live tiles), counted by
+``ksub_matmul_masked.pipelined``; the others, and K2, keep the kernel above.
 
 :func:`ksub_matmul` and :func:`ksub_matmul_masked` dispatch on the tensor's
 device: a CPU tensor takes the plain version; a CUDA tensor launches the
@@ -209,13 +212,19 @@ def ksub_matmul_masked(c, x, y, grow, gcol, x_k_major: bool = True) -> torch.Ten
         return c
     gr, gc = grow.reshape(m).contiguous(), gcol.reshape(n).contiguous()
     lib = _build.library("ksub_tf32x3")
+    route = ctypes.c_int(0)   # the launcher sets 1 where it took the pipelined route
     with torch.cuda.device(c.device):
         rc = lib.dlaf_ksub_tf32x3_masked(c.data_ptr(), c.stride(0), x.data_ptr(), x.stride(0),
                                          y.data_ptr(), y.stride(0), gr.data_ptr(), gc.data_ptr(),
-                                         m, n, k, int(x_k_major), _build.stream_of(c))
+                                         m, n, k, int(x_k_major), _build.stream_of(c),
+                                         ctypes.addressof(route))
     _build.check(rc, lib, "ksub_matmul_masked")
     ksub_matmul_masked.launches += 1
+    ksub_matmul_masked.pipelined += route.value
     return c
 
 
+# K6's launches, and those of them that took the pipelined route (X (m, k),
+# operands 16-byte aligned, no k split; the launcher reports it)
 ksub_matmul_masked.launches = 0
+ksub_matmul_masked.pipelined = 0

@@ -27,7 +27,9 @@ On (:func:`enable`), each span records
   which its descendants carry.
 - ``counts``: on a top-level span, the launches of K1
   (``potrf_tile.launches``) and K6 (``ksub_matmul_masked.launches``) made
-  in the call, as ``k1`` and ``k6``; ``None`` on the spans inside it.
+  in the call, as ``k1`` and ``k6``, and those of K6's that took its
+  pipelined route (``ksub_matmul_masked.pipelined``) as ``k6_pipelined``;
+  ``None`` on the spans inside it.
 
 Records stay in memory until :func:`drain` returns them. The buffer holds
 at most ``CAPACITY`` records; a span opened while it is full is not
@@ -85,7 +87,7 @@ _NULL = _Null()
 
 
 class _Span:
-    __slots__ = ("rec", "k1", "k6")
+    __slots__ = ("rec", "k1", "k6", "k6p")
 
     def __init__(self, name, attrs):
         self.rec = Record(0, 0, -1, name, 0, 0, attrs, None)
@@ -99,7 +101,7 @@ class _Span:
         else:
             _calls += 1
             rec.call = _calls
-            self.k1, self.k6 = _k1.launches, _k6.launches
+            self.k1, self.k6, self.k6p = _k1.launches, _k6.launches, _k6.pipelined
             _offset = time.time_ns() - time.perf_counter_ns()
         _records.append(rec)
         _stack.append(rec)
@@ -111,7 +113,8 @@ class _Span:
         rec.end_ns = time.perf_counter_ns() + _offset
         _stack.pop()
         if rec.parent == -1:
-            rec.counts = {"k1": _k1.launches - self.k1, "k6": _k6.launches - self.k6}
+            rec.counts = {"k1": _k1.launches - self.k1, "k6": _k6.launches - self.k6,
+                          "k6_pipelined": _k6.pipelined - self.k6p}
         return False
 
 

@@ -1,7 +1,7 @@
 """Measurements of the PyTorch/H100 port beside chip_smoke.py's checks, on one CUDA card.
 
     python3 scripts/torch_chip_probes.py accumulation bf16_potrf k5_levers[=BASELINE.cu] \
-        k3_levers[=BASELINE.cu,...] stage2 k3_loads
+        k3_levers[=BASELINE.cu,...] stage2 k3_loads k6_levers[=BASELINE.cu]
 
 - ``accumulation``: K2 (``csrc/ksub_tf32x3.cu``) as built, where each
   32-deep k step is summed on the tensor cores from zero and then added
@@ -51,6 +51,19 @@
   of whole rows' 16-byte chunks, one ``cp.async.bulk`` copy a row; 4-byte,
   16-byte or bulk stores), on one block and on 22 (K3's lanes at
   n = 8192).
+- ``k6_levers``: K6's pipelined route (``csrc/ksub_tf32x3.cu``,
+  ``ksub_tf32x3_kernel<true>``) at chip_smoke.py's (30720, 1536, 2048)
+  and the n40960 cell's (38912, 512, 2048) and heaviest (38912, 2048,
+  2048) chunks, timed in turns as built
+  and as copies of its source (built into ``build/dlaf_tpu_torch/k6_levers/``)
+  patched to leave out the promotion's adds (``no_promote``), to add a
+  constant in their place (``promote_const``: the adds without reading the
+  finished accumulators) or to leave out X's split (``no_split``); timing
+  only, the patched sums are wrong. Each variant also runs a 3-second loop
+  of launches while nvidia-smi samples the SM clock and the power draw
+  (the kernel draws the card's power limit). ``=BASELINE.cu`` also times
+  another tree's ``ksub_tf32x3.cu`` whose K6 entry has no route argument
+  (the route before the pipelined one).
 - ``stage2``: stage 2 (band to tridiagonal, through K3) as the entry
   points run it, on a random band of width 128: ``eigh``'s at n = 8192
   f32 and n = 4096 complex64 (``eigh_c64``; ``band_to_tridiag_auto`` on
@@ -86,7 +99,7 @@ from dlaf_tpu_torch.matrix import generators as gen  # noqa: E402
 from dlaf_tpu_torch.ops.kernels import _build  # noqa: E402
 from dlaf_tpu_torch.ops.kernels.potrf import factor_deviation, potrf_tile  # noqa: E402
 from dlaf_tpu_torch.ops.kernels.trailing import (  # noqa: E402
-    ksub_matmul, ksub_matmul_ref)
+    ksub_matmul, ksub_matmul_masked_ref, ksub_matmul_ref)
 
 DEV = torch.device("cuda", 0)
 EPS32 = torch.finfo(torch.float32).eps
@@ -521,9 +534,100 @@ def probe_bf16_potrf() -> None:
              factor_deviation_c32_bf16=factor_deviation(f, want, 32, bf16=True))
 
 
+# (anchor in ksub_tf32x3.cu, replacement) per k6_levers variant
+K6_PROMOTE = "      for (int i = 16 * j; i < 16 * j + 16; ++i) tot[i] += prev[i];"
+K6_LEVER_EDITS = {
+    "no_promote": [(K6_PROMOTE, K6_PROMOTE.replace("tot[i] += prev[i];", "reg_fence(tot[i]);"))],
+    "promote_const": [(K6_PROMOTE, K6_PROMOTE.replace("prev[i]", "1.0f"))],
+    "no_split": [("for (int e = ti; e < kXBytes / 16; e += kSplitters) {",
+                  "for (int e = ti; e < 0; e += kSplitters) {")],
+}
+
+
+def _smi_while(fn, seconds: float) -> tuple:
+    """ms a call of ``fn`` in a loop of ``seconds``, and nvidia-smi's SM
+    clock (MHz) and power draw (W) sampled every 0.25 s in its second half."""
+    import threading
+    samples, stop = [], threading.Event()
+
+    def sample():
+        time.sleep(seconds / 2)
+        while not stop.is_set():
+            out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                                  "--format=csv,noheader,nounits"], capture_output=True,
+                                 text=True, timeout=60).stdout.split(",")
+            samples.append((float(out[0]), float(out[1])))
+            time.sleep(0.25)
+
+    th = threading.Thread(target=sample)
+    th.start()
+    t0, calls = time.perf_counter(), 0
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        calls += 20
+    stop.set()
+    th.join()
+    return (time.perf_counter() - t0) * 1e3 / calls, samples
+
+
+def probe_k6_levers(baseline: str | None = None) -> None:
+    _build.build_all()
+    src = (_build.CSRC / "ksub_tf32x3.cu").read_text()
+    variants = {tag: (src, edits) for tag, edits in K6_LEVER_EDITS.items()}
+    libs = {"built": _build.library("ksub_tf32x3")}
+    libs.update({tag: lib for tag, (lib, _) in
+                 _patched_libraries("ksub_tf32x3", variants, "k6_levers").items()})
+    if baseline:
+        _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        sig = {"dlaf_ksub_tf32x3_masked": [_P, _LL, _P, _LL, _P, _LL, _P, _P, _I, _I, _I, _I, _P]}
+        libs["baseline"] = _patched_libraries("ksub_tf32x3", {"baseline": (open(baseline).read(), [])},
+                                              "k6_levers", sig)["baseline"][0]
+    route = ctypes.c_int(0)
+    g = torch.Generator(device=DEV).manual_seed(11)
+    n = 40960
+    idx = torch.arange(n, device=DEV, dtype=torch.int32)
+    for m, w, k in ((30720, 1536, 2048), (38912, 512, 2048), (38912, 2048, 2048)):
+        c = gen.random_general(g, (m, w), torch.float32)
+        x = gen.random_general(g, (m, k), torch.float32)
+        y = gen.random_general(g, (k, w), torch.float32)
+        gr, gc = idx[n - m:, None].contiguous(), idx[None, n - m:n - m + w].contiguous()
+        want = ksub_matmul_masked_ref(c.double(), x.double(), y.double(), gr, gc, False)
+        bound = EPS32 * (2 * k * float(x.abs().max()) * float(y.abs().max()) + float(c.abs().max()))
+
+        def call(tag, cc):
+            args = [cc.data_ptr(), w, x.data_ptr(), k, y.data_ptr(), w, gr.data_ptr(),
+                    gc.data_ptr(), m, w, k, 0, _build.stream_of(cc)]
+            lib = libs[tag]
+            _build.check(lib.dlaf_ksub_tf32x3_masked(
+                *(args if tag == "baseline" else args + [ctypes.addressof(route)])), lib, tag)
+
+        times = {tag: [] for tag in libs}
+        for tag in list(libs) + list(reversed(libs)):
+            cc = c.clone()
+            call(tag, cc)
+            start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            for _ in range(5):
+                call(tag, cc)
+            stop.record()
+            torch.cuda.synchronize()
+            times[tag].append(start.elapsed_time(stop) / 5)
+        for tag in libs:
+            cc = c.clone()
+            call(tag, cc)
+            err = float((cc.double() - want).abs().max()) / bound
+            loop_ms, smi = _smi_while(lambda: call(tag, cc), 3.0)
+            emit("k6_levers", variant=tag, m=m, n=w, k=k, ms=min(times[tag]),
+                 ms_turns=times[tag], err_of_bound=err, loop_ms=loop_ms,
+                 sm_mhz=[s[0] for s in smi], power_w=[s[1] for s in smi])
+        del c, x, y, want
+
+
 PROBES = {"accumulation": probe_accumulation, "bf16_potrf": probe_bf16_potrf,
           "k5_levers": probe_k5_levers, "k3_levers": probe_k3_levers, "stage2": probe_stage2,
-          "k3_loads": probe_k3_loads}
+          "k3_loads": probe_k3_loads, "k6_levers": probe_k6_levers}
 
 
 if __name__ == "__main__":

@@ -156,15 +156,17 @@ def test_ksub_signatures_registered():
 
 
 class _MaskedLib:
-    """Stand-in for the ksub_tf32x3 library: records K6's launches."""
+    """Stand-in for the ksub_tf32x3 library: records K6's launches and
+    reports the route as the launcher does (pipelined for X (m, k))."""
 
     def __init__(self):
         self.calls = []
 
     def dlaf_ksub_tf32x3_masked(self, c, ldc, x, ldx, y, ldy, grow, gcol, m, n, k, x_k_major,
-                                stream):
+                                stream, pipelined):
         self.calls.append({"ld": (ldc, ldx, ldy), "mnk": (m, n, k), "x_k_major": x_k_major,
                            "indices": (grow, gcol)})
+        ctypes.c_int.from_address(pipelined).value = int(not x_k_major)
         return 0
 
 
@@ -172,7 +174,8 @@ class _MaskedLib:
 def test_ksub_masked_passes_views_and_indices_to_the_kernel(monkeypatch, x_k_major):
     """What K6's launch receives from strided views and strided index
     vectors: the views' leading dimensions, the shape and the layout; one
-    launch counted, and ``c`` not touched on the host."""
+    launch counted, on the pipelined route where the launcher reports it,
+    and ``c`` not touched on the host."""
     import contextlib
     lib = _MaskedLib()
     monkeypatch.setattr(_build, "on_cuda", lambda t: True)
@@ -185,8 +188,10 @@ def test_ksub_masked_passes_views_and_indices_to_the_kernel(monkeypatch, x_k_maj
     grow = torch.arange(24, dtype=torch.int32).reshape(12, 2)[:, :1]
     gcol = torch.arange(34, dtype=torch.int32).reshape(1, 34)[:, ::2]
     before = ktrail.ksub_matmul_masked.launches
+    piped = ktrail.ksub_matmul_masked.pipelined
     assert ktrail.ksub_matmul_masked(c, x, y, grow, gcol, x_k_major=x_k_major) is c
     assert ktrail.ksub_matmul_masked.launches == before + 1
+    assert ktrail.ksub_matmul_masked.pipelined == piped + int(not x_k_major)
     (call,) = lib.calls
     assert call["ld"] == (20, x.stride(0), 21)
     assert call["mnk"] == (12, 17, 5) and call["x_k_major"] == int(x_k_major)

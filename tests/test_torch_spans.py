@@ -116,7 +116,8 @@ def test_cholesky_spans(factors, uplo):
         ["cholesky.panel"]
     assert len(recs) == 1 + npanels + (npanels - 1) + 4 * nrt
     # the plain kernels on the CPU launch nothing; only the call's span counts
-    assert top.counts == {"k1": 0, "k6": 0} and all(r.counts is None for r in recs[1:])
+    assert top.counts == {"k1": 0, "k6": 0, "k6_pipelined": 0}
+    assert all(r.counts is None for r in recs[1:])
 
 
 def test_pspotrf_surface_spans(recorder):
@@ -166,22 +167,24 @@ def test_full_buffer_counts_drops(recorder, monkeypatch):
 
 def test_call_ids_and_counters(recorder, monkeypatch):
     """Each top-level span opens a call; K1's and K6's launches inside the
-    call are its top-level span's counts, and the spans inside it count
-    nothing."""
+    call, and K6's on its pipelined route, are its top-level span's counts,
+    and the spans inside it count nothing."""
     monkeypatch.setattr(potrf_tile, "launches", potrf_tile.launches)
     monkeypatch.setattr(ksub_matmul_masked, "launches", ksub_matmul_masked.launches)
+    monkeypatch.setattr(ksub_matmul_masked, "pipelined", ksub_matmul_masked.pipelined)
     recorder.enable()
     for _ in range(2):
         with recorder.span("top"):
             potrf_tile.launches += 1
             with recorder.span("inner"):
                 ksub_matmul_masked.launches += 3
+                ksub_matmul_masked.pipelined += 2
                 potrf_tile.launches += 2
     recs, _ = recorder.drain()
     assert [(r.name, r.parent) for r in recs] == [("top", -1), ("inner", recs[0].index),
                                                   ("top", -1), ("inner", recs[2].index)]
     assert recs[0].call == recs[1].call != recs[2].call == recs[3].call
-    assert [r.counts for r in recs[:2]] == [{"k1": 3, "k6": 3}, None]
+    assert [r.counts for r in recs[:2]] == [{"k1": 3, "k6": 3, "k6_pipelined": 2}, None]
 
 
 @pytest.mark.parametrize("was_on", [False, True])
