@@ -24,7 +24,9 @@ versions.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 import warnings
 from typing import Dict, List
 
@@ -172,14 +174,152 @@ def _device(grid: Grid, device) -> torch.device:
     return rank_device("cuda", grid.rank)
 
 
+# ---------------------------------------------------------------------------
+# host <-> card copies of the global matrix
+
+# The pinned staging ring: _SLOTS blocks of _BLOCK_BYTES of page-locked host
+# memory, allocated on the first staged copy and kept for the process
+# (PERF.md §6 has the link and host-copy rates they were chosen from). A
+# staged copy moves the matrix in row blocks of at most _BLOCK_BYTES: the
+# host copies one block between the caller's pageable memory and a slot
+# (torch's CPU copy, parallel over the intra-op threads) while the link
+# carries the block before it between a slot and the card.
+_BLOCK_BYTES = 32 << 20
+_SLOTS = 2
+
+# staged copies made in this process (each direction of each call counts one)
+staged_copies = 0
+
+
+class _StagingRing:
+    """The process's pinned slots, behind one lock: calls from several
+    threads take turns."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.slots = None
+
+    def take(self) -> List[torch.Tensor]:
+        """The slots (allocated on first use); hold ``lock`` around the use."""
+        if self.slots is None:
+            self.slots = [torch.empty(_BLOCK_BYTES, dtype=torch.uint8, pin_memory=True)
+                          for _ in range(_SLOTS)]
+        return self.slots
+
+
+_RING = _StagingRing()
+
+
+def _row_blocks(rows: int, row_bytes: int) -> List[tuple]:
+    """Consecutive row ranges (r0, r1) of at most ``_BLOCK_BYTES`` each (one
+    row at least) that cover rows 0 .. ``rows`` once, in order."""
+    step = max(1, _BLOCK_BYTES // max(1, row_bytes))
+    return [(r, min(r + step, rows)) for r in range(0, rows, step)]
+
+
+def _staged_blocks(t: torch.Tensor, dev: torch.device):
+    """The row blocks of a staged copy of ``t`` between the host and
+    ``dev``, or None where the copy goes direct: ``dev`` is not a CUDA
+    device, ``t`` is not a contiguous matrix, one of its rows does not fit
+    a slot, or it fits in one block."""
+    if dev.type != "cuda" or t.dim() != 2 or not t.is_contiguous():
+        return None
+    row_bytes = t.shape[1] * t.element_size()
+    if row_bytes > _BLOCK_BYTES:
+        return None
+    blocks = _row_blocks(t.shape[0], row_bytes)
+    return blocks if len(blocks) >= 2 else None
+
+
+def _slot_view(slot: torch.Tensor, rows: int, like: torch.Tensor) -> torch.Tensor:
+    """The first ``rows`` rows of a matrix shaped and typed like ``like``
+    in ``slot``'s bytes."""
+    cols = like.shape[1]
+    return slot[:rows * cols * like.element_size()].view(like.dtype).view(rows, cols)
+
+
+@contextlib.contextmanager
+def _staging():
+    """The ring's slots and an event for each, under the ring's lock; every
+    event waited on the way out (no copy left in flight to a slot), and
+    the copy counted."""
+    global staged_copies
+    with _RING.lock:
+        slots = _RING.take()
+        events = [torch.cuda.Event() for _ in slots]
+        try:
+            yield slots, events
+        finally:
+            for ev in events:
+                ev.synchronize()
+        staged_copies += 1
+
+
+def _staged_to_card(src: torch.Tensor, dev: torch.device, blocks) -> torch.Tensor:
+    """``src`` (on the host) as a new tensor on ``dev``: block by block, the
+    slot's last copy to the card waited, the block copied into the slot on
+    the host, then from the slot to the card on the current stream."""
+    dst = torch.empty(src.shape, dtype=src.dtype, device=dev)
+    stream = torch.cuda.current_stream(dev)
+    with _staging() as (slots, events):
+        for i, (r0, r1) in enumerate(blocks):
+            k = i % len(slots)
+            events[k].synchronize()
+            view = _slot_view(slots[k], r1 - r0, src)
+            view.copy_(src[r0:r1])
+            dst[r0:r1].copy_(view, non_blocking=True)
+            events[k].record(stream)
+    return dst
+
+
+def _staged_to_host(t: torch.Tensor, blocks) -> torch.Tensor:
+    """``t`` (on the card) as a new pageable host tensor: the copies of the
+    first blocks into the slots started on the current stream, then block
+    by block the slot's copy waited, the slot drained into the result on
+    the host and the copy of the block ``len(slots)`` ahead started."""
+    out = torch.empty(t.shape, dtype=t.dtype)
+    stream = torch.cuda.current_stream(t.device)
+    with _staging() as (slots, events):
+        def start(j):
+            r0, r1 = blocks[j]
+            k = j % len(slots)
+            _slot_view(slots[k], r1 - r0, t).copy_(t[r0:r1], non_blocking=True)
+            events[k].record(stream)
+
+        for j in range(min(len(slots), len(blocks))):
+            start(j)
+        for i, (r0, r1) in enumerate(blocks):
+            k = i % len(slots)
+            events[k].synchronize()
+            out[r0:r1].copy_(_slot_view(slots[k], r1 - r0, t))
+            if i + len(slots) < len(blocks):
+                start(i + len(slots))
+    return out
+
+
 def _on(a, dev: torch.device) -> torch.Tensor:
-    """``a`` (a numpy array or tensor) as a tensor on ``dev``. A read-only
-    array is wrapped as it is (no call writes the tensor)."""
-    if isinstance(a, torch.Tensor):
-        return a.to(dev)
-    with warnings.catch_warnings():
-        warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    """``a`` (a numpy array or tensor) as a tensor on ``dev``, in a
+    ``surface.to_card`` span. A read-only array is wrapped as it is (no
+    call writes the tensor). A host matrix bound for a CUDA device that
+    spans two blocks or more goes through the staging ring."""
+    if not isinstance(a, torch.Tensor):
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
+            a = torch.from_numpy(np.ascontiguousarray(a))
+    blocks = _staged_blocks(a, dev) if a.device.type == "cpu" else None
+    with span("surface.to_card", bytes=a.nbytes, route="staged" if blocks else "direct",
+              chunks=len(blocks) if blocks else 1):
+        return _staged_to_card(a, dev, blocks) if blocks else a.to(dev)
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """``t`` as a new numpy array (a view of ``t`` where it is on the CPU),
+    in a ``surface.to_host`` span. A matrix on a CUDA device that spans two
+    blocks or more comes through the staging ring."""
+    blocks = _staged_blocks(t, t.device)
+    with span("surface.to_host", bytes=t.nbytes, route="staged" if blocks else "direct",
+              chunks=len(blocks) if blocks else 1):
+        return (_staged_to_host(t, blocks) if blocks else t.cpu()).numpy()
 
 
 # rows of the blocks the factor's other triangle is restored through (its
@@ -206,8 +346,7 @@ def _run_cholesky(ctx, uplo, a, desc, device=None):
     from ..matrix.dist_matrix import DistMatrix
     grid = dlaf_get_grid(ctx)
     dev = _device(grid, device)
-    with span("surface.to_card", bytes=a.nbytes):
-        at = _on(a, dev)
+    at = _on(a, dev)
     with span("surface.distribute"):
         dm = DistMatrix.from_global(at, desc.mb, grid, pad_identity=True)
     factor = cholesky(dm, uplo=uplo)
@@ -216,8 +355,7 @@ def _run_cholesky(ctx, uplo, a, desc, device=None):
     del dm, factor
     with span("surface.keep_triangle"):
         g = _keep_triangle_(g, at, uplo)
-    with span("surface.to_host", bytes=g.nbytes):
-        return g.cpu().numpy()
+    return _to_host(g)
 
 
 def dlaf_cholesky_factorization(ctx: int, uplo: str, a, desc: DLAF_descriptor, device=None):
@@ -245,7 +383,7 @@ def dlaf_symmetric_eigensolver(ctx: int, uplo: str, a, desc: DLAF_descriptor, de
     at = _as_lower(_on(a, _device(grid, device)), uplo)
     w, v = eigh_dist(DistMatrix.from_global(at, desc.mb, grid))
     del at
-    return w.cpu().numpy(), v.to_global().cpu().numpy()
+    return _to_host(w), _to_host(v.to_global())
 
 
 def dlaf_hermitian_eigensolver(ctx, uplo, a, desc, device=None):
@@ -272,7 +410,7 @@ def dlaf_symmetric_generalized_eigensolver(ctx: int, uplo: str, a, b,
         db = DistMatrix.from_global(_as_lower(bt, uplo), desc.mb, grid, pad_identity=True)
     del bt
     w, x = eigh_gen_dist(da, db, b_factorized=factorized)
-    return w.cpu().numpy(), x.to_global().cpu().numpy()
+    return _to_host(w), _to_host(x.to_global())
 
 
 # ScaLAPACK-style aliases (reference dlaf_pspotrf/pdpotrf/pssyevd/...)

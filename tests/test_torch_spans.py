@@ -142,7 +142,8 @@ def test_pspotrf_surface_spans(recorder):
     assert [r.name for r in kids] == ["surface.to_card", "surface.distribute", "cholesky",
                                       "surface.gather", "surface.keep_triangle",
                                       "surface.to_host"]
-    assert kids[0].attrs == kids[-1].attrs == {"bytes": n * n * 4}
+    assert kids[0].attrs == kids[-1].attrs == {"bytes": n * n * 4, "route": "direct",
+                                               "chunks": 1}
     assert all(r.call == top.call for r in recs)
     assert all(top.start_ns <= r.start_ns <= r.end_ns <= top.end_ns for r in recs)
     assert all(a.end_ns <= b.start_ns for a, b in zip(kids, kids[1:]))
