@@ -37,7 +37,7 @@ from ...tune import get_tune_parameters
 from .band2tridiag import band_to_tridiag_auto
 from .bt import bt_band_to_tridiag, bt_reduction_to_band
 from .dist_red2band import reduction_to_band_dist
-from .driver import _phase_normalize, _real, get_band_size
+from .driver import _phase_normalize, _real, get_band_size, pad_dense
 from .red2band import extract_band
 from .tridiag_dc import tridiag_eigh
 from .tridiag_dc_dist import (dc_dist_supported, merge_tree_idle_fraction, pow2_floor,
@@ -139,13 +139,7 @@ def _eigh_dist_gathered(a: DistMatrix, laed4: int):
     pm = a.dist.padded_size[0]
     grid = a.grid
     if pm > n:
-        g = a.to_global()
-        gersh = g.abs().max() * (n + 1)
-        gp = g.new_zeros((pm, pm))
-        gp[:n, :n] = g
-        gp.diagonal()[n:] = gersh + 1.0 + torch.arange(pm - n, dtype=_real(g).dtype,
-                                                         device=g.device)
-        a = DistMatrix.from_global(gp, nb, grid)
+        a = DistMatrix.from_global(pad_dense(a.to_global(), pm), nb, grid)
     packed, taus1 = reduction_to_band_dist(a)
     packed_g = packed.to_global()
     d, e, vs, taus2 = band_to_tridiag_auto(extract_band(packed_g, nb), nb)

@@ -37,6 +37,7 @@ from .band_strips import (COL_BASE, STRIP_W, band_to_tridiag_strips, chase_wavef
                           n_strips, restripe, wavefront_chases, wavefront_k, wavefront_nsteps)
 from .bt import wy_group_vt
 from .dist_red2band import replicated_panel
+from .driver import pad_diagonal
 from .tridiag_dc_dist import all_to_all_flat, flat_index, rank_of_flat
 
 # ---------------------------------------------------------------------------
@@ -44,11 +45,10 @@ from .tridiag_dc_dist import all_to_all_flat, flat_index, rank_of_flat
 
 
 def _pad_fix(data: torch.Tensor, *, nb: int, n: int, pm: int, grid) -> torch.Tensor:
-    """This rank's shard with the padding region zeroed and large,
-    separated entries on the padding diagonal (gersh + 1 + k at n + k,
-    gersh = (n + 1) max|A| over the grid), so that the padded eigenvalues
-    decouple and sort last. A new tensor; ``data`` itself where nothing
-    is padded."""
+    """This rank's shard with the padding region zeroed and the decoupled
+    padding diagonal (:func:`.driver.pad_diagonal`, max|A| over the grid)
+    on its entries of the diagonal. A new tensor; ``data`` itself where
+    nothing is padded."""
     if n >= pm:
         return data
     P, Q = grid.grid_size
@@ -59,7 +59,7 @@ def _pad_fix(data: torch.Tensor, *, nb: int, n: int, pm: int, grid) -> torch.Ten
     nr = int((grow < n).sum())
     nc = int((gcol < n).sum())
     amax = data[:nr, :nc].abs().amax().reshape(1) if nr and nc else data.new_zeros((1,)).abs()
-    gersh = coll.allreduce_max(amax, None, grid)[0] * (n + 1)
+    amax = coll.allreduce_max(amax, None, grid)[0]
     out = data.clone()
     out[nr:] = 0
     out[:, nc:] = 0
@@ -67,7 +67,7 @@ def _pad_fix(data: torch.Tensor, *, nb: int, n: int, pm: int, grid) -> torch.Ten
     tile = grow // nb
     lcol = (tile // Q) * nb + grow % nb
     rows = torch.nonzero((grow >= n) & (tile % Q == q) & (lcol < ln)).squeeze(1)
-    out[rows, lcol[rows]] = (gersh + 1.0 + (grow[rows] - n)).to(out.dtype)
+    out[rows, lcol[rows]] = pad_diagonal(amax, n, grow[rows] - n).to(out.dtype)
     return out
 
 

@@ -39,6 +39,26 @@ def _real(x: torch.Tensor) -> torch.Tensor:
     return x.real if x.is_complex() else x
 
 
+def pad_diagonal(amax: torch.Tensor, n: int, k: torch.Tensor) -> torch.Tensor:
+    """The decoupled padding of an n x n matrix A (amax = max|A|): the
+    diagonal entry at n + k (k an integer tensor) is (n + 1) amax + 1 + k,
+    above the Gershgorin bound (the +1 even for an all-zero A), so the
+    padded eigenvalues are separated and sort strictly last."""
+    return amax * (n + 1) + 1.0 + k.to(amax.dtype)
+
+
+def pad_dense(a: torch.Tensor, m: int) -> torch.Tensor:
+    """``a`` (n x n) embedded in an m x m matrix, zero off its block, with
+    :func:`pad_diagonal` on the padding diagonal; ``a`` itself if m == n."""
+    n = a.shape[0]
+    if m == n:
+        return a
+    ap = a.new_zeros((m, m))
+    ap[:n, :n] = a
+    ap.diagonal()[n:] = pad_diagonal(a.abs().max(), n, torch.arange(m - n, device=a.device))
+    return ap
+
+
 def eigh(a: torch.Tensor, uplo: str = "L", band: int | None = None,
          laed4_iter: int | None = None):
     """Eigenvalues (ascending) and eigenvectors of hermitian ``a``.
@@ -72,19 +92,7 @@ def eigh(a: torch.Tensor, uplo: str = "L", band: int | None = None,
         q = phases[:, None] * q.to(a.dtype)
         return w, bt_band_to_tridiag(q, vs, taus2, bn, group_size=group)
 
-    npad = (-n) % b
-    if npad:
-        # decoupled padding: a large separated diagonal, so the padded
-        # eigenvalues sort strictly last (the +1 keeps them above the
-        # Gershgorin bound even for an all-zero input)
-        ap = a.new_zeros((n + npad, n + npad))
-        ap[:n, :n] = a
-        gersh = a.abs().max() * (n + 1)
-        rdt = _real(ap).dtype
-        ap.diagonal()[n:] = gersh + 1.0 + torch.arange(npad, dtype=rdt, device=a.device)
-    else:
-        ap = a
-
+    ap = pad_dense(a, n + (-n) % b)
     packed, taus1 = reduction_to_band(ap, b)
     d, e, vs, taus2 = band_to_tridiag(extract_band(packed, b), b)
     er, phases = _phase_normalize(e, ap.dtype)

@@ -3,9 +3,16 @@
 PyTorch counterpart of :mod:`dlaf_tpu.algos.eigensolver.tridiag_dc`
 (reference ``eigensolver/tridiag_solver/impl.h`` + ``merge.h``): Cuppen
 tears at every leaf boundary, leaves solved by cyclic Jacobi, then each
-merge level processes all pairs of the level at once: deflation, the
-secular equation solved per root (laed4 style, difference-first pole
-arithmetic), Gu/Eisenstat z recomputation and one batched eigenvector GEMM.
+merge level processes all pairs of the level at once.
+
+One merge's eigen-analysis is three functions, each batched over B merges
+and restricted to a range of roots (rows) [lo, lo + csz), by default all:
+the deflation analysis (:func:`_deflation`), the anchored laed4 secular
+root solve (:func:`_secular_roots`, difference-first pole arithmetic) and
+the Gu/Eisenstat z recomputation (:func:`_zhat`); one batched eigenvector
+GEMM follows. The local levels run the three over the whole range; the
+row-sharded top levels of :mod:`.tridiag_dc_dist` run the same three on
+one merge and the chunk of its roots that a rank owns.
 
 Where the JAX package ``vmap``s over the leaves or the merges of a level,
 the batch is a leading dimension written out here; where its batched
@@ -16,9 +23,11 @@ Jacobi rotations, the deflation rotations and the laed4 iterations (one
 device-to-host read per iteration to test convergence).
 
 n is padded to LEAF * 2^L with decoupled, well-separated diagonal entries
-that deflate trivially.
+that deflate trivially (:func:`_dc_pad`, the one place the D&C pads).
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -164,48 +173,69 @@ def _deflate(ds, zs, zsmall, tol):
     return z, (c_a, s_a, pi_a, idx)
 
 
-def _merge(d, z, rho, tol_scale, laed4_iter: int):
-    """Eigen-analysis of diag(d) + rho z z^T (rho >= 0) with deflation, for
-    a batch (B, n) of merges.
+class Deflation(NamedTuple):
+    """The deflation analysis of a batch (B, n) of merges, in d-sorted order."""
+    perm: torch.Tensor          # the sorting permutation of d
+    ds: torch.Tensor            # the sorted poles
+    zs2: torch.Tensor           # z after the deflation rotations
+    zmask: torch.Tensor         # zs2 with the deflated entries zeroed
+    deflated: torch.Tensor
+    rots: tuple                 # (c, s, prev or -1, i), see _deflate
+    tol: torch.Tensor           # (B,)
+    normz2: torch.Tensor        # (B,) |z|^2 before deflation
 
-    Returns (lam, zhat, ds, perm, root, deflated, rots); eigenvalues are
-    lam = ds + mu in d-sorted order (not resorted yet).
-    """
-    bsz, n = d.shape
-    dt = d.dtype
-    dev = d.device
-    fi = torch.finfo(dt)
-    eps, tiny = fi.eps, fi.tiny
 
+def _deflation(d, z, rho, tol_scale) -> Deflation:
+    """Deflation analysis of diag(d) + rho z z^T (rho >= 0) for a batch
+    (B, n) of merges: 1) z-threshold deflation, 2) close-eigenvalue
+    rotation deflation (:func:`_deflate`)."""
+    eps = torch.finfo(d.dtype).eps
     perm = torch.argsort(d, dim=1, stable=True)
     ds = _gather(d, perm)
     zs = _gather(z, perm)
-
     normz2 = (zs * zs).sum(1)
     dspread = torch.clamp(ds[:, -1] - ds[:, 0], min=eps)
     tol = 8.0 * eps * torch.maximum(tol_scale, dspread)
-
-    # 1) z-threshold deflation, 2) close-eigenvalue rotation deflation
     zsmall = (rho[:, None] * zs).abs() <= tol[:, None]
     zs2, rots = _deflate(ds, zs, zsmall, tol)
     deflated = ((rho[:, None] * zs2).abs() <= tol[:, None]) | (zs2 == 0)
     zmask = torch.where(deflated, 0.0, zs2)
+    return Deflation(perm, ds, zs2, zmask, deflated, rots, tol, normz2)
 
-    # 3) secular roots: f(lam) = 1 + rho sum_j zmask_j^2/(ds_j - lam), one
-    #    root per survivor i in (ds_i, ds_next_i), anchored at the nearer
-    #    pole: lam_i = ds[anchor_i] + sign_i * t_i
+
+def _secular_roots(dfl: Deflation, rho, laed4_iter: int, lo: int = 0, csz: int | None = None):
+    """Roots [lo, lo + csz) (default: all) of the secular equations
+    f(lam) = 1 + rho sum_j zmask_j^2/(ds_j - lam) of a batch of merges:
+    one root per survivor i in (ds_i, ds_next_i), anchored at the nearer
+    pole, lam_i = ds[anchor_i] + sgn_i * troot_i (laed4 style, pole
+    differences first; reference ``merge.h:798-974``). A deflated root is
+    its own pole (anchor i, sgn 1, troot 0).
+
+    Returns (anchor, sgn, troot), each (B, csz). A merge stops once every
+    bracket of its range is resolved to relative machine precision, or
+    after ``laed4_iter`` iterations; stopped merges are held as they are.
+    """
+    ds, deflated = dfl.ds, dfl.deflated
+    bsz, n = ds.shape
+    rows = slice(lo, n if csz is None else lo + csz)
+    dt = ds.dtype
+    dev = ds.device
+    fi = torch.finfo(dt)
+    eps, tiny = fi.eps, fi.tiny
+
     idx = torch.arange(n, device=dev).expand(bsz, n)
     masked_idx = torch.where(deflated, n, idx)
     sufmin = torch.flip(torch.cummin(torch.flip(masked_idx, [1]), dim=1).values, [1])
     next_idx = torch.cat([sufmin[:, 1:], torch.full((bsz, 1), n, device=dev,
-                                                    dtype=idx.dtype)], dim=1)
+                                                    dtype=idx.dtype)], dim=1)[:, rows]
     has_next = next_idx < n
     next_i = next_idx.clamp(max=n - 1)
-    top_delta = rho * normz2 * (1 + 4 * eps) + tol
-    delta = torch.where(has_next, _gather(ds, next_i) - ds, top_delta[:, None])
+    top_delta = rho * dfl.normz2 * (1 + 4 * eps) + dfl.tol
+    ds_r = ds[:, rows]
+    delta = torch.where(has_next, _gather(ds, next_i) - ds_r, top_delta[:, None])
     delta = torch.clamp(delta, min=tiny)
 
-    z2r = zmask * zmask
+    z2r = dfl.zmask * dfl.zmask
     tiny4 = tiny * 1e4
     rho_ = rho[:, None]
 
@@ -214,14 +244,14 @@ def _merge(d, z, rho, tol_scale, laed4_iter: int):
                            torch.where(den < 0, -tiny4, tiny4), den)
 
     # side decision at the midpoint, pole differences first (LAPACK dlaed4)
-    den = (ds[:, None, :] - ds[:, :, None]) - (0.5 * delta)[:, :, None]
+    den = (ds[:, None, :] - ds_r[:, :, None]) - (0.5 * delta)[:, :, None]
     fmid = 1.0 + rho_ * (z2r[:, None, :] / guard(den)).sum(2)
     del den
     right = (fmid < 0) & has_next
-    anchor = torch.where(right, next_i, idx)
+    ridx = idx[:, rows]
+    anchor = torch.where(right, next_i, ridx)
     sgn = torch.where(right, -1.0, 1.0).to(dt)
-    ds_anchor = _gather(ds, anchor)
-    dd_a = ds[:, None, :] - ds_anchor[:, :, None]     # dd_a[b, i, j] = ds_j - ds[anchor_i]
+    dd_a = ds[:, None, :] - _gather(ds, anchor)[:, :, None]   # ds_j - ds[anchor_i]
     w_own = _gather(z2r, anchor)
     own = anchor[:, :, None] == idx[:, None, :]
     tmax = torch.where(right | has_next, 0.5 * delta, delta)
@@ -235,73 +265,83 @@ def _merge(d, z, rho, tol_scale, laed4_iter: int):
         s_no_own = 1.0 + rho_ * torch.where(own, 0.0, terms).sum(2)
         return sgn * f, df, s_no_own
 
-    lo = torch.zeros_like(ds)
-    hi = tmax
+    lo_t = torch.zeros_like(ds_r)
+    hi_t = tmax
     t = 0.5 * tmax
-    fp_sign = torch.where(right, -1.0, 1.0).to(dt)
     for _ in range(laed4_iter):
-        # a merge stops once every bracket is resolved to relative machine
-        # precision; stopped merges are held as they are
-        live = ((hi - lo) > 2 * eps * t.abs() + tiny).any(1)
+        live = ((hi_t - lo_t) > 2 * eps * t.abs() + tiny).any(1)
         if not bool(live.any()):
             break
         g, df, s_no_own = g_parts(t)
-        lo_n = torch.where(g < 0, t, lo)
-        hi_n = torch.where(g < 0, hi, t)
+        lo_n = torch.where(g < 0, t, lo_t)
+        hi_n = torch.where(g < 0, hi_t, t)
         newton = t - g / torch.clamp(df, min=tiny)
         # fixed point absorbing the anchor's own pole
-        fp_den = fp_sign * s_no_own
+        fp_den = sgn * s_no_own
         fp = rho_ * w_own / torch.where(fp_den > 0, fp_den, torch.inf)
         t_n = torch.where((fp > lo_n) & (fp < hi_n), fp, 0.5 * (lo_n + hi_n))
         t_n = torch.where((newton > lo_n) & (newton < hi_n), newton, t_n)
         keep = live[:, None]
-        lo = torch.where(keep, lo_n, lo)
-        hi = torch.where(keep, hi_n, hi)
+        lo_t = torch.where(keep, lo_n, lo_t)
+        hi_t = torch.where(keep, hi_n, hi_t)
         t = torch.where(keep, t_n, t)
-    troot = torch.where(deflated, 0.0, t)
-    anchor = torch.where(deflated, idx, anchor)
-    sgn = torch.where(deflated, 1.0, sgn)
-    ds_anchor = _gather(ds, anchor)
-    lam = ds_anchor + sgn * troot
-    # mu := lam - ds_i, exact when left-anchored (= troot)
-    mu = torch.where(right & ~deflated, delta - troot, troot)
+    defl_r = deflated[:, rows]
+    return (torch.where(defl_r, ridx, anchor), torch.where(defl_r, 1.0, sgn),
+            torch.where(defl_r, 0.0, t))
 
-    # 4) Gu/Eisenstat zhat: zhat_i^2 = mu_i prod_{j != i} (lam_j - ds_i)/(ds_j - ds_i),
-    #    lam_j - ds_i formed through the anchored representation
-    offdiag = ~torch.eye(n, dtype=torch.bool, device=dev)
-    num = (ds_anchor[:, None, :] - ds[:, :, None]) + (sgn * troot)[:, None, :]
-    dd = ds[:, None, :] - ds[:, :, None]              # dd[b, i, j] = ds_j - ds_i
+
+def _zhat(dfl: Deflation, root, lo: int = 0, csz: int | None = None):
+    """Gu/Eisenstat zhat for rows [lo, lo + csz) (default: all) of a batch
+    of merges, from every root's (anchor, sgn, troot), each (B, n):
+    zhat_i^2 = mu_i prod_{j != i} (lam_j - ds_i)/(ds_j - ds_i), with
+    lam_j - ds_i formed through the anchored representation and
+    mu_i = lam_i - ds_i exact: troot_i left-anchored,
+    (ds[anchor_i] - ds_i) - troot_i right-anchored."""
+    ds = dfl.ds
+    n = ds.shape[1]
+    rows = slice(lo, n if csz is None else lo + csz)
+    anchor, sgn, troot = root
+    idx = torch.arange(n, device=ds.device)
+    ds_r = ds[:, rows]
+    ds_anchor = _gather(ds, anchor)
+    troot_r = troot[:, rows]
+    mu = torch.where(anchor[:, rows] != idx[rows],
+                     torch.clamp(ds_anchor[:, rows] - ds_r, min=torch.finfo(ds.dtype).tiny)
+                     - troot_r, troot_r)
+    offdiag = idx[rows, None] != idx[None, :]
+    num = (ds_anchor[:, None, :] - ds_r[:, :, None]) + (sgn * troot)[:, None, :]
+    dd = ds[:, None, :] - ds_r[:, :, None]              # dd[b, i, j] = ds_j - ds_i
     ratio = torch.where(offdiag & (dd != 0), num / torch.where(dd != 0, dd, 1.0), 1.0)
     del num, dd
     prod = torch.prod(ratio, dim=2)
     del ratio
-    zhat2 = torch.clamp(mu * prod, min=0.0)
-    zhat = torch.where(deflated, 0.0, torch.sign(zs2) * torch.sqrt(zhat2))
-
-    return lam, zhat, ds, perm, (anchor, sgn, troot), deflated, rots
+    zhat = torch.sign(dfl.zs2[:, rows]) * torch.sqrt(torch.clamp(mu * prod, min=0.0))
+    return torch.where(dfl.deflated[:, rows], 0.0, zhat)
 
 
-def _merge_vectors(qleft_t, qright_t, lam, zhat, perm, root, deflated, rots, ds):
-    """Assemble eigenvectors after a batch of merges and sort ascending.
+def _merge_vectors(qleft_t, qright_t, zhat, dfl: Deflation, root):
+    """Eigenvalues lam = ds[anchor] + sgn troot and eigenvectors after a
+    batch of merges, sorted ascending.
 
     The eigenvector matrix is carried TRANSPOSED (qT[j, r] = q[r, j]):
     deflation rotations and permutations act on columns of q, rows of qT.
     The rank-one table qv (n x n per merge) is formed whole; at the 80 GB
     of an H100 it fits at every size the local driver takes.
     """
-    bsz, n = lam.shape
-    dt = lam.dtype
-    dev = lam.device
+    bsz, n = zhat.shape
+    dt = zhat.dtype
+    dev = zhat.device
     n1 = qleft_t.shape[1]
-    qcat = lam.new_zeros((bsz, n, n))
+    qcat = zhat.new_zeros((bsz, n, n))
     qcat[:, :n1, :n1] = qleft_t
     qcat[:, n1:, n1:] = qright_t
     bidx = torch.arange(bsz, device=dev)[:, None]
-    qt = qcat[bidx, perm]                      # qt[k] = qcat[perm[k]]
+    ds, deflated = dfl.ds, dfl.deflated
+    qt = qcat[bidx, dfl.perm]                  # qt[k] = qcat[perm[k]]
     del qcat
 
     # the deflation rotations in scan order, valid ones first
-    c_a, s_a, pi_a, i_a = rots
+    c_a, s_a, pi_a, i_a = dfl.rots
     validm = pi_a >= 0
     order_r = torch.argsort((~validm).to(torch.int8), dim=1, stable=True)
     c_a, s_a, pi_a, i_a = (_gather(x, order_r) for x in (c_a, s_a, pi_a, i_a))
@@ -319,7 +359,9 @@ def _merge_vectors(qleft_t, qright_t, lam, zhat, perm, root, deflated, rots, ds)
     # ds_j - lam_i = (ds_j - ds_anchor_i) - sgn_i * troot_i
     anchor, sgn, troot = root
     eps = torch.finfo(dt).eps
-    den = (ds[:, :, None] - _gather(ds, anchor)[:, None, :]) - (sgn * troot)[:, None, :]
+    ds_anchor = _gather(ds, anchor)
+    lam = ds_anchor + sgn * troot                     # in d-sorted order
+    den = (ds[:, :, None] - ds_anchor[:, None, :]) - (sgn * troot)[:, None, :]
     qv = zhat[:, :, None] / torch.where(den == 0, eps, den)
     del den
     eye = torch.eye(n, dtype=dt, device=dev)
@@ -338,45 +380,59 @@ def _merge_vectors(qleft_t, qright_t, lam, zhat, perm, root, deflated, rots, ds)
 # driver
 
 
-def _tridiag_dc_padded(d, e, laed4_iter: int):
-    m = d.shape[0]
-    size = LEAF
-    while size < m:
-        size *= 2
-    assert size == m, (m, LEAF)
+def _dc_order(n: int) -> int:
+    """The D&C's padded order: the smallest LEAF * 2^L >= n."""
+    return max(LEAF, 1 << (n - 1).bit_length())
 
-    # Cuppen tears at every leaf boundary, applied up front (diagonal-only)
-    nblocks = m // LEAF
+
+def _dc_pad(d, e):
+    """(m, d, e) padded to the D&C's order m with decoupled diagonal
+    entries above the Gershgorin bound, gersh + 1 + k at n + k, which
+    deflate trivially and sort last."""
+    n = d.shape[0]
+    m = _dc_order(n)
+    emax = e.abs().max() if n > 1 else d.new_zeros(())
+    gersh = d.abs().max() + 2 * emax
+    padvals = gersh + 1.0 + torch.arange(m - n, dtype=d.dtype, device=d.device)
+    ep = d.new_zeros((m,))
+    if n > 1:
+        ep[:n - 1] = e
+    return m, torch.cat([d, padvals]), ep
+
+
+def _leaves(d, e):
+    """Cuppen tears at every leaf boundary of the padded (d, e), applied up
+    front (diagonal-only), and the leaves' eigensystems by Jacobi: (lam
+    (L, LEAF), q (L, LEAF, LEAF), the deflation tolerance's scale)."""
+    nblocks = d.shape[0] // LEAF
     dmod = d.clone()
     if nblocks > 1:
         bidx = torch.arange(1, nblocks, device=d.device) * LEAF
         rho_all = e[bidx - 1].abs()
-        dmod[bidx - 1] += -rho_all
-        dmod[bidx] += -rho_all
-
+        dmod[bidx - 1] -= rho_all
+        dmod[bidx] -= rho_all
     dleaf = dmod.reshape(nblocks, LEAF)
     eleaf = e.reshape(nblocks, LEAF)[:, :-1]
     tmats = torch.diag_embed(dleaf) + torch.diag_embed(eleaf, 1) + torch.diag_embed(eleaf, -1)
     lam, q = _jacobi_eigh(tmats)
-    q = q.mT.contiguous()               # transposed storage (see _merge_vectors)
+    return lam, q, d.abs().max() + 2 * e.abs().max()
 
-    tol_scale = d.abs().max() + 2 * e.abs().max()
-    size = LEAF
-    while lam.shape[0] > 1:
-        nb2 = lam.shape[0] // 2
-        lam1, lam2 = lam[0::2], lam[1::2]
-        q1, q2 = q[0::2], q[1::2]
-        bnd = torch.arange(nb2, device=d.device) * (2 * size) + size
-        ecut = e[bnd - 1]
-        rho = ecut.abs()
-        theta = torch.where(ecut >= 0, 1.0, -1.0).to(d.dtype)
-        dcat = torch.cat([lam1, lam2], dim=1)
-        zcat = torch.cat([theta[:, None] * q1[:, :, -1], q2[:, :, 0]], dim=1)
-        lamv, zhat, ds, perm, root, defl, rots = _merge(dcat, zcat, rho, tol_scale,
-                                                         laed4_iter)
-        lam, q = _merge_vectors(q1, q2, lamv, zhat, perm, root, defl, rots, ds)
-        size *= 2
-    return lam[0], q[0].mT
+
+def _merge_level(lam, q, e, size: int, first: int, tol_scale, laed4_iter: int):
+    """One level of local merges of a batch of eigensystems of order
+    ``size`` (lam (2B, size), q transposed (2B, size, size)): pair k
+    (2k, 2k + 1) is merge first + k of the level, diag(d) + rho z z^T
+    torn at e[(first + k) 2 size + size - 1]. Returns the merged (lam, q)."""
+    q1, q2 = q[0::2], q[1::2]
+    bnd = (first + torch.arange(q1.shape[0], device=e.device)) * (2 * size) + size
+    ecut = e[bnd - 1]
+    rho = ecut.abs()
+    theta = torch.where(ecut >= 0, 1.0, -1.0).to(e.dtype)
+    dcat = torch.cat([lam[0::2], lam[1::2]], dim=1)
+    zcat = torch.cat([theta[:, None] * q1[:, :, -1], q2[:, :, 0]], dim=1)
+    dfl = _deflation(dcat, zcat, rho, tol_scale)
+    root = _secular_roots(dfl, rho, laed4_iter)
+    return _merge_vectors(q1, q2, _zhat(dfl, root), dfl, root)
 
 
 def laed4_iter_cap(dtype, laed4_iter: int) -> int:
@@ -394,16 +450,11 @@ def tridiag_eigh(d: torch.Tensor, e: torch.Tensor, laed4_iter: int = 120):
     """
     laed4_iter = laed4_iter_cap(d.dtype, laed4_iter)
     n = d.shape[0]
-    dt = d.dtype
-    m = LEAF
-    while m < n:
-        m *= 2
-    emax = e.abs().max() if n > 1 else d.new_zeros(())
-    gersh = d.abs().max() + 2 * emax
-    padvals = gersh + 1.0 + torch.arange(m - n, dtype=dt, device=d.device)
-    dp = torch.cat([d, padvals])
-    ep = d.new_zeros((m,))
-    if n > 1:
-        ep[:n - 1] = e
-    lam, q = _tridiag_dc_padded(dp, ep, laed4_iter)
-    return lam[:n], q[:n, :n]
+    _, dp, ep = _dc_pad(d, e)
+    lam, q, tol_scale = _leaves(dp, ep)
+    q = q.mT.contiguous()               # transposed storage (see _merge_vectors)
+    size = LEAF
+    while lam.shape[0] > 1:
+        lam, q = _merge_level(lam, q, ep, size, 0, tol_scale, laed4_iter)
+        size *= 2
+    return lam[0, :n], q[0].mT[:n, :n]

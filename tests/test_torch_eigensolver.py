@@ -242,6 +242,84 @@ def test_laed4_iter_cap():
     assert dc.laed4_iter_cap(torch.float64, 120) == jdc.laed4_iter_cap(jnp.float64, 120) == 120
 
 
+def _merge_batch(dtype):
+    """The deflation analysis of two merges of order 96 as one batch: a
+    random one and a clustered one (repeated poles, tiny z entries)."""
+    rng = np.random.default_rng(41)
+    n = 96
+    d = np.stack([rng.standard_normal(n),
+                  np.repeat(rng.standard_normal(n // 8), 8) + 1e-13 * rng.standard_normal(n)])
+    z = rng.standard_normal((2, n))
+    z[1, rng.uniform(size=n) < 0.2] = 1e-14
+    z /= np.linalg.norm(z, axis=1, keepdims=True)
+    d, z = _t(d.astype(dtype)), _t(z.astype(dtype))
+    rho = _t(np.array([0.7, 1.3], dtype))
+    return dc._deflation(d, z, rho, d.abs().max() + 2), rho
+
+
+@pytest.mark.parametrize("chunks", [2, 3, 4])
+def test_merge_analysis_by_chunks_matches_one_full_range_call(real_dtype_p, chunks):
+    """The row-sharded top levels run the local merge's root solve and
+    zhat on a chunk of the roots (rows); concatenated over the chunks they
+    are one full-range call. Root by root the arithmetic is the same, so a
+    fixed iteration budget gives the same bits. The stop rule is per
+    range: a chunk whose brackets are all resolved stops where the full
+    range may run on, so at the full budget each root lies within its
+    resolved bracket, 2 eps |troot| + tiny, of the full range's. zhat is
+    row by row: bit-equal."""
+    dfl, rho = _merge_batch(real_dtype_p)
+    assert dfl.deflated[1].any() and (dfl.rots[2][1] >= 0).any()
+    assert not dfl.deflated[0].all()
+    n = dfl.ds.shape[1]
+    cuts = np.linspace(0, n, chunks + 1).astype(int)
+    ranges = [(int(a), int(b - a)) for a, b in zip(cuts[:-1], cuts[1:])]
+    for budget in (2, dc.laed4_iter_cap(dfl.ds.dtype, 120)):
+        full = dc._secular_roots(dfl, rho, budget)
+        parts = [dc._secular_roots(dfl, rho, budget, lo, csz) for lo, csz in ranges]
+        anchor, sgn, troot = (torch.cat(p, 1) for p in zip(*parts))
+        assert torch.equal(anchor, full[0]) and torch.equal(sgn, full[1])
+        if budget == 2:
+            assert torch.equal(troot, full[2])
+        else:
+            fi = torch.finfo(troot.dtype)
+            assert ((troot - full[2]).abs() <= 2 * fi.eps * troot.abs() + fi.tiny).all()
+    zhat = torch.cat([dc._zhat(dfl, full, lo, csz) for lo, csz in ranges], 1)
+    assert torch.equal(zhat, dc._zhat(dfl, full))
+
+
+def test_pad_helpers_match_the_inline_pads():
+    """The D&C pad is what tridiag_eigh and tridiag_eigh_dist built inline;
+    the matrix-level pad is what eigh and the gathered eigh_dist built
+    inline, and the shard pad on a 1x1 grid writes the same matrix."""
+    from dlaf_tpu_torch.algos.eigensolver import dist_stage23 as s23
+    from dlaf_tpu_torch.algos.eigensolver.driver import pad_dense
+    from dlaf_tpu_torch.comm.mesh import Grid
+
+    rng = np.random.default_rng(3)
+    for dtype in (np.float32, np.float64):
+        for n, m in ((1, 32), (2, 32), (31, 32), (32, 32), (33, 64), (100, 128)):
+            d, e = _tridiag(rng, n, dtype)
+            gersh = np.abs(d).max() + 2 * (np.abs(e).max() if n > 1 else dtype(0))
+            want_d = np.concatenate([d, gersh + 1 + np.arange(m - n, dtype=dtype)])
+            want_e = np.zeros(m, dtype)
+            want_e[:n - 1] = e
+            got_m, got_d, got_e = dc._dc_pad(_t(d), _t(e))
+            assert got_m == m
+            assert torch.equal(got_d, _t(want_d)) and torch.equal(got_e, _t(want_e))
+    for dtype in (np.float64, np.complex64):
+        n, pm = 50, 64
+        a = _t(_herm(rng, n, dtype))
+        want = torch.zeros((pm, pm), dtype=a.dtype)
+        want[:n, :n] = a
+        want.diagonal()[n:] = (a.abs().max() * (n + 1) + 1.0
+                               + torch.arange(pm - n, dtype=a.abs().dtype))
+        assert torch.equal(pad_dense(a, pm), want)
+        assert pad_dense(a, n) is a
+        shard = torch.full((pm, pm), 7.0, dtype=a.dtype)
+        shard[:n, :n] = a
+        assert torch.equal(s23._pad_fix(shard, nb=16, n=n, pm=pm, grid=Grid((1, 1))), want)
+
+
 # -------------------------------------------------------- back-transforms
 
 
